@@ -1,0 +1,46 @@
+"""cannoles_tpu_torch — the batched CaNNOLeS solver in PyTorch, for NVIDIA H100.
+
+A port of ``cannoles_tpu`` (the JAX/Pallas package beside it, which stays
+the reference).  It imports torch and numpy, never JAX.  The solver is
+batch-native: every state tensor has a leading batch axis, and a single
+solve is the case B = 1.  The fused LDLᵀ factor+solve of every ρ-ladder
+attempt (``linsolve='pallas'``) is a hand-written CUDA kernel
+(``csrc/fused_ldlt.cu``), built with nvcc at first use on a CUDA tensor.
+
+Quick start::
+
+    import torch
+    from cannoles_tpu_torch import nls_problem, cannoles
+
+    nls = nls_problem(lambda x: torch.stack([x[0] - 1, 10 * (x[1] - x[0] ** 2)]),
+                      torch.tensor([-1.2, 1.0], dtype=torch.float64), 2)
+    stats = cannoles(nls)
+
+Batched::
+
+    from cannoles_tpu_torch import vsolve
+    res = vsolve(nls, x0_batch, method="lm", linsolve="pallas")
+"""
+
+from .core.solver import CaNNOLeSSolver, RunConfig, SolverState, cannoles
+from .core.status import ExecutionStats, Status, status_name
+from .params import Params
+from .parallel.batch import BatchResult, vsolve
+from .problem import NLSProblem, nls_problem
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "nls_problem",
+    "cannoles",
+    "CaNNOLeSSolver",
+    "vsolve",
+    "Status",
+    "ExecutionStats",
+    "status_name",
+    "SolverState",
+    "RunConfig",
+    "BatchResult",
+    "Params",
+    "NLSProblem",
+]

@@ -1,0 +1,172 @@
+"""Problem families of the batched main path.
+
+Port of ``cannoles_tpu/models/families.py`` (``bundle_adjustment`` and
+``bundle_adjustment_batch``) plus the bench family of ``bench.py`` and its
+batch draw.
+Observations, starts and gauge constants come from the same numpy code and
+seeds as in the JAX package, so both packages get identical data.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..problem import NLSProblem, nls_problem
+
+__all__ = ["bundle_adjustment", "bundle_adjustment_batch", "lm_bench_family", "lm_bench_batch"]
+
+
+def lm_bench_family(dtype: torch.dtype, device) -> NLSProblem:
+    """The bench family (port of ``bench.py:build_problem``): a Rosenbrock
+    residual with one linear constraint, data d = (d0, d1, d2):
+    F = (x0 - d0, 10(x1 - x0²) - d1), c = x0 + x1 - d2.  N = n+m+p = 5."""
+
+    def residual(x, d):
+        return torch.stack([x[0] - d[0], 10 * (x[1] - x[0] ** 2) - d[1]])
+
+    def cons(x, d):
+        return torch.stack([x[0] + x[1] - d[2]])
+
+    return nls_problem(
+        residual,
+        torch.tensor([-1.2, 1.0], dtype=dtype, device=device),
+        2,
+        cons,
+        [0.0],
+        [0.0],
+        data=torch.zeros((3,), dtype=dtype, device=device),
+        name="bench_lm_family",
+    )
+
+
+def lm_bench_batch(B: int, seed: int = 0):
+    """Starts and data of the bench family, drawn as ``bench.py`` draws them
+    (``:142-150``): x0 (B, 2) and d (B, 3), float64 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.normal(scale=0.5, size=(B, 2)) + [-1.2, 1.0]
+    d = np.stack(
+        [1 + 0.2 * rng.normal(size=B), 0.1 * rng.normal(size=B), 1 + 0.2 * rng.normal(size=B)],
+        axis=1,
+    )
+    return x0, d
+
+
+def _rodrigues(w, X):
+    """Rotate points X (..., 3) by angle-axis w (3,), small-angle safe."""
+    theta2 = (w * w).sum()
+    theta = torch.sqrt(theta2 + 1e-30)
+    k = w / theta
+    c, s = torch.cos(theta), torch.sin(theta)
+    kxX = torch.linalg.cross(k.expand(X.shape), X, dim=-1)
+    kdX = (X @ k)[..., None]
+    R = c * X + s * kxX + (1 - c) * kdX * k
+    small = theta2 < 1e-12
+    return torch.where(small, X + torch.linalg.cross(w.expand(X.shape), X, dim=-1), R)
+
+
+def bundle_adjustment(
+    n_cams: int = 4,
+    n_pts: int = 32,
+    noise: float = 0.0,
+    seed: int = 0,
+    focal: float = 1.0,
+    dtype: torch.dtype = torch.float64,
+    device="cpu",
+) -> Tuple[NLSProblem, np.ndarray]:
+    """Synthesize a consistent planar-pinhole BA scene; returns
+    (problem, x_true).  Parameters ``[poses (n_cams, 6); points (n_pts, 3)]``
+    with pose = (angle-axis w, translation t), u = f·(R(X−t))_{xy}/z; the
+    gauge is fixed by 7 equality constraints (pose 0 pinned, ‖t₁−t₀‖² fixed)."""
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(-0.3, 0.3, n_cams)
+    t_true = np.stack([4.0 * np.sin(angles), 0.3 * rng.normal(size=n_cams), -6.0 + np.cos(angles)], axis=1)
+    w_true = np.stack([0.05 * rng.normal(size=n_cams), angles * 0.5, 0.02 * rng.normal(size=n_cams)], axis=1)
+    X_true = rng.uniform(-2.0, 2.0, size=(n_pts, 3))
+    X_true[:, 2] += 1.0
+
+    cams_true = np.concatenate([w_true, t_true], axis=1)
+    x_true = np.concatenate([cams_true.reshape(-1), X_true.reshape(-1)])
+
+    def project_all(x):
+        cams = x[: 6 * n_cams].reshape(n_cams, 6)
+        pts = x[6 * n_cams:].reshape(n_pts, 3)
+        w = cams[:, :3]
+        t = cams[:, 3:]
+        rel = pts[None, :, :] - t[:, None, :]
+        Xc = torch.stack([_rodrigues(w[i], rel[i]) for i in range(n_cams)])
+        z = torch.clamp(Xc[..., 2], min=1e-3)
+        uv = focal * Xc[..., :2] / z[..., None]
+        return uv.reshape(-1)
+
+    def _np_project(cams, pts):
+        uv = np.empty((n_cams, n_pts, 2))
+        for i in range(n_cams):
+            w, t = cams[i, :3], cams[i, 3:]
+            th = np.sqrt((w**2).sum()) + 1e-30
+            k = w / th
+            X = pts - t
+            c, s_ = np.cos(th), np.sin(th)
+            Xc = c * X + s_ * np.cross(np.broadcast_to(k, X.shape), X) + (
+                (1 - c) * (X @ k)[:, None] * k
+            )
+            uv[i] = focal * Xc[:, :2] / np.maximum(Xc[:, 2], 1e-3)[:, None]
+        return uv.reshape(-1)
+
+    obs = _np_project(cams_true, X_true)
+    obs = obs + noise * rng.normal(size=obs.shape)
+
+    def residual(x, d):
+        return project_all(x) - d["obs"]
+
+    base2 = float(np.sum((t_true[1] - t_true[0]) ** 2))
+    pose0 = cams_true[0].copy()
+
+    def cons(x, d):
+        c_pin = x[:6] - d["pose0"]
+        c_scale = ((x[9:12] - x[3:6]) ** 2).sum().reshape(1) - d["base2"]
+        return torch.cat([c_pin, c_scale])
+
+    x0 = x_true + 0.02 * rng.normal(size=x_true.shape)
+    x0[:6] = pose0
+    m = 2 * n_cams * n_pts
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    pb = nls_problem(
+        residual,
+        t(x0),
+        m,
+        cons,
+        np.zeros(7),
+        np.zeros(7),
+        data={"obs": t(obs), "pose0": t(pose0), "base2": t([base2])},
+        name=f"bundle_adjustment_{n_cams}c{n_pts}p",
+    )
+    return pb, x_true
+
+
+def bundle_adjustment_batch(
+    n_scenes: int,
+    n_cams: int = 4,
+    n_pts: int = 32,
+    noise: float = 0.0,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float64,
+    device="cpu",
+):
+    """``n_scenes`` independent BA instances of one family: returns
+    (problem, x0_batch (B, n), data_batch (leaves (B, ...)), x_true_batch)."""
+    pb0, x0s, datas, trues = None, [], [], []
+    for i in range(n_scenes):
+        pb, xt = bundle_adjustment(n_cams, n_pts, noise=noise, seed=seed + i, dtype=dtype, device=device)
+        if pb0 is None:
+            pb0 = pb
+        x0s.append(pb.x0)
+        datas.append(pb.data)
+        trues.append(xt)
+    data_batch = {k: torch.stack([d[k] for d in datas]) for k in datas[0]}
+    return pb0, torch.stack(x0s), data_batch, np.stack(trues)

@@ -1,0 +1,267 @@
+"""Instance-batch solves: ``vsolve`` and the rescue of unsolved lanes.
+
+Port of ``cannoles_tpu/parallel/batch.py``.  The batch runs through the
+batch-native solver (``CaNNOLeSSolver.run``), in sequential chunks when
+``chunk_size`` asks for them.  A diverging lane cannot stall or kill the
+batch: every lane carries its own status.
+
+Not in this slice: ``mesh=`` (ROADMAP queue 1 item 15) and ``max_time=``
+(queue 1 item 7) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.solver import (
+    TENSOR_FIELDS,
+    CaNNOLeSSolver,
+    SolverState,
+    _check_available_method,
+    resolve_auto,
+)
+from ..core.status import Status
+from ..ops.fused_ldlt import max_n
+from ..problem import NLSProblem
+from ..utils.convert import tree_to_torch
+
+__all__ = ["vsolve", "BatchResult"]
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Batched terminal states + host-side summary accessors."""
+
+    states: SolverState  # every tensor has a leading batch axis
+    solver: Optional[CaNNOLeSSolver] = None
+
+    @property
+    def solution(self):
+        return self.states.x.cpu().numpy()
+
+    @property
+    def multipliers(self):
+        return self.states.lam.cpu().numpy()
+
+    @property
+    def status(self):
+        return self.states.status.cpu().numpy()
+
+    @property
+    def objective(self):
+        return self.states.fx.cpu().numpy()
+
+    @property
+    def iterations(self):
+        return self.states.iter.cpu().numpy()
+
+    @property
+    def dual_feas(self):
+        return self.states.normdual.cpu().numpy()
+
+    def solved_mask(self) -> np.ndarray:
+        st = self.status
+        return (st == Status.FIRST_ORDER) | (st == Status.SMALL_RESIDUAL)
+
+    def summary(self) -> Dict[str, Any]:
+        st = self.status
+        return {
+            "n": int(st.shape[0]),
+            "solved": int(self.solved_mask().sum()),
+            "first_order": int((st == Status.FIRST_ORDER).sum()),
+            "small_residual": int((st == Status.SMALL_RESIDUAL).sum()),
+            "exception": int((st == Status.EXCEPTION).sum()),
+            "mean_iter": float(self.iterations.mean()),
+            "max_iter": int(self.iterations.max()),
+        }
+
+
+def _tree_index(tree, idx):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, idx) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_index(v, idx) for v in tree)
+    return tree[idx]
+
+
+def _concat_states(parts, data):
+    return SolverState(
+        **{f: torch.cat([getattr(s, f) for s in parts], 0) for f in TENSOR_FIELDS}, data=data
+    )
+
+
+def vsolve(
+    problem: NLSProblem,
+    x0_batch,
+    lam0_batch=None,
+    data_batch=None,
+    *,
+    solver: Optional[CaNNOLeSSolver] = None,
+    method: str = "newton",
+    linsolve: str = "auto",
+    kkt: str = "auto",
+    mesh=None,
+    max_iter: int = 100,
+    chunk_size: Optional[int] = None,
+    max_time: Optional[float] = None,
+    rescue: bool = False,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    **numeric,
+) -> BatchResult:
+    """Solve a batch of instances of one problem family.
+
+    ``x0_batch``: (B, nvar).  ``data_batch``: optional pytree whose leaves
+    carry a leading B axis.  ``dtype``/``device`` place the solver built
+    here (default: those of ``problem.x0``); with ``solver`` given, its own
+    are used.  Inputs are moved there; numpy data leaves become tensors.
+
+    ``linsolve='auto'`` takes the fused LDLᵀ kernel ('pallas') where the
+    KKT size fits the kernel's cap (``ops.fused_ldlt.max_n``), else the
+    JAX package's fallbacks ('chol' on a condensed Gauss–Newton/LM system,
+    not ported yet, or 'ldlt').  ``chunk_size``: run the batch in
+    sequential chunks of this many lanes (it must divide B).
+
+    ``rescue``: re-solve the unsolved lanes from their original starts and
+    merge them back: stage 0 re-runs budget-limited lanes (stalled,
+    max_iter, max_eval) on the same solver, stage 1 re-runs the rest with
+    the backward-error gate forced on (skipped when the solver already runs
+    gated), stage 2 sends what is still unsolved to the exact-inertia
+    ``eigh`` backend.  Every rescue pass lifts the eval and inner budgets
+    to the reference's (max_eval=100000, max_inner=10000).
+    """
+    if mesh is not None:
+        raise NotImplementedError("vsolve(mesh=...) is not ported yet: ROADMAP queue 1 item 15")
+    if max_time is not None:
+        raise NotImplementedError("vsolve(max_time=...) is not ported yet: ROADMAP queue 1 item 7")
+    problem.validate_for_solve()
+    if solver is None:
+        method_r = _check_available_method(method)
+        if kkt == "auto":
+            _, kkt, _ = resolve_auto(problem, method_r, "auto", "auto")
+        if linsolve == "auto":
+            n, m, p = problem.nvar, problem.nequ, problem.ncon
+            N = (n + p) if kkt == "condensed" else (n + m + p)
+            if N <= max_n(problem.x0.dtype if dtype is None else dtype):
+                linsolve = "pallas"
+            elif kkt == "condensed" and method_r in ("gauss_newton", "lm"):
+                linsolve = "chol"
+            else:
+                linsolve = "ldlt"
+        solver = CaNNOLeSSolver(
+            problem, method=method, linsolve=linsolve, kkt=kkt, dtype=dtype, device=device
+        )
+    dev, dt = solver.device, solver.dtype
+    x0_batch = torch.as_tensor(x0_batch).to(dtype=dt, device=dev)
+    B = x0_batch.shape[0]
+    if lam0_batch is None:
+        lam0_batch = problem.y0.to(dtype=dt, device=dev).expand(B, problem.ncon)
+    lam0_batch = torch.as_tensor(lam0_batch).to(dtype=dt, device=dev)
+    data_batch = tree_to_torch(data_batch, device=dev, dtype=dt)
+    cfg = solver.make_config(max_iter=max_iter, **numeric)
+
+    use_chunks = chunk_size is not None and B % chunk_size == 0 and B > chunk_size
+    if chunk_size is not None and not use_chunks and chunk_size != B:
+        warnings.warn(
+            f"vsolve: chunk_size={chunk_size} ignored (chunking requires chunk_size < B "
+            f"dividing B, B={B}); running the whole batch at once",
+            stacklevel=2,
+        )
+    if use_chunks:
+        parts = []
+        for lo in range(0, B, chunk_size):
+            sl = slice(lo, lo + chunk_size)
+            parts.append(
+                solver.run(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl))
+            )
+        states = _concat_states(parts, data_batch)
+    else:
+        states = solver.run(x0_batch, lam0_batch, cfg, data_batch)
+    result = BatchResult(states=states, solver=solver)
+    if rescue:
+        result = _rescue_unsolved(
+            solver, result, x0_batch, lam0_batch, data_batch, cfg,
+            skip_stage1=solver.quality_gate,
+        )
+    return result
+
+
+def _rescue_unsolved(solver, result, x0_batch, lam0_batch, data_batch, cfg, skip_stage1=False):
+    """Three-stage re-solve of the unsolved lanes, merged back in place.
+
+    Stage 0: budget-limited lanes (stalled / max_iter / max_eval) on the
+    primary solver: they need budget, not another backend.  Stage 1: the
+    same backend with the backward-error gate forced on (skipped when the
+    solver already runs gated).  Stage 2: the exact-inertia ``eigh``
+    backend.  The eval/inner budgets are lifted to the reference's in every
+    stage.  The siblings are cached on the primary solver.  The JAX package
+    pads each subset to a power of two to bound its compiled shapes; here
+    the subset runs at its own size, and the merge is an ``index_copy``
+    into the full state."""
+    dev = solver.device
+    cfg = cfg._replace(
+        max_eval=torch.tensor(100000, dtype=torch.int32, device=dev),
+        max_inner=torch.tensor(10000, dtype=torch.int32, device=dev),
+    )
+
+    def _pass(res, sibling, only=None):
+        bad = ~res.solved_mask()
+        if only is not None:
+            bad &= only
+        idx_np = np.nonzero(bad)[0]
+        if idx_np.size == 0:
+            return res
+        idx = torch.as_tensor(idx_np, device=dev)
+        sub = sibling.run(
+            x0_batch[idx], lam0_batch[idx], cfg, _tree_index(data_batch, idx)
+        )
+        full = res.states
+        merged = full._replace(
+            **{f: getattr(full, f).index_copy(0, idx, getattr(sub, f)) for f in TENSOR_FIELDS}
+        )
+        return BatchResult(states=merged, solver=res.solver)
+
+    cache = solver.__dict__.setdefault("_rescue_siblings", {})
+
+    def _sibling(kind):
+        sib = cache.get(kind)
+        if sib is None:
+            common = dict(
+                method=solver.method,
+                kkt=solver.kkt,
+                use_initial_multiplier=solver.use_initial_multiplier,
+                always_accept_extrapolation=solver.always_accept_extrapolation,
+                params=solver.params,
+                dtype=solver.dtype,
+                device=solver.device,
+            )
+            if kind == "gated":
+                sib = CaNNOLeSSolver(
+                    solver.problem,
+                    linsolve=solver.linsolve,
+                    quality_gate=True,
+                    robust_fallback=solver.robust_fallback,
+                    **common,
+                )
+            else:
+                sib = CaNNOLeSSolver(solver.problem, linsolve="eigh", **common)
+            cache[kind] = sib
+        return sib
+
+    budget_lanes = np.isin(
+        result.status, (int(Status.STALLED), int(Status.MAX_ITER), int(Status.MAX_EVAL))
+    )
+    if budget_lanes.any():
+        result = _pass(result, solver, only=budget_lanes)
+    if not skip_stage1:
+        result = _pass(result, _sibling("gated"))
+    if (~result.solved_mask()).any():
+        result = _pass(result, _sibling("eigh"))
+    return result

@@ -1,0 +1,252 @@
+"""Problem protocol: equality-constrained nonlinear least squares, batched.
+
+PyTorch counterpart of ``cannoles_tpu/problem.py``.  The user supplies pure
+functions on ONE instance,
+
+    residual(x[, data]) -> (nequ,)   and   cons(x[, data]) -> (ncon,)
+
+written with torch ops, and every evaluator below works on a batch: ``x`` is
+(B, nvar) and ``data`` is ``None`` or a pytree (tensor, dict, tuple) whose
+leaves carry the same leading B axis.  Values are batched with
+``torch.func.vmap`` over ``(x, data)``; derivatives come from
+``torch.func.jacfwd`` and ``torch.func.hessian``.
+
+Not ported yet: the matrix-free products ``jprod``/``jtprod``/``hprod``
+(ROADMAP queue 1 item 3) and the shard_map basis of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch.func import hessian, jacfwd, vmap
+
+__all__ = ["NLSProblem", "nls_problem", "Counters"]
+
+
+class Counters:
+    """Evaluation counters, mirroring NLPModels NLSCounters."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.neval_residual = 0
+        self.neval_cons = 0
+        self.neval_jac_residual = 0
+        self.neval_jac = 0
+        self.neval_hess_residual = 0
+        self.neval_hess = 0
+
+    def eval_fun(self) -> int:
+        return self.neval_residual + self.neval_cons
+
+
+def _wants_data(fn: Callable) -> bool:
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    return len(sig.parameters) >= 2
+
+
+def _dd(data):
+    """vmap in_dim of a data argument: batched leaves, or nothing to map."""
+    return None if data is None else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class NLSProblem:
+    """min ½‖residual(x)‖²  s.t.  cons(x) = lcon  (= ucon), no bounds."""
+
+    residual: Callable  # (x, data) -> (nequ,)
+    nvar: int
+    nequ: int
+    x0: Any  # (nvar,) tensor
+    cons: Optional[Callable] = None  # (x, data) -> (ncon,)
+    ncon: int = 0
+    lcon: Any = None
+    ucon: Any = None
+    y0: Any = None
+    lvar: Any = None
+    uvar: Any = None
+    data: Any = None
+    name: str = "generic"
+    minimize: bool = True
+    has_residual_hessian: bool = True
+    jac_residual: Optional[Callable] = None
+    hess_residual_weighted: Optional[Callable] = None  # (x, r, data) -> (n, n)
+    jac_cons: Optional[Callable] = None
+    hess_cons_weighted: Optional[Callable] = None  # (x, y, data) -> (n, n)
+    counters: Counters = dataclasses.field(default_factory=Counters, compare=False)
+
+    # ---- validation ----
+    def validate_for_solve(self):
+        if not self.minimize:
+            raise ValueError("CaNNOLeS only works for minimization problem")
+        if self.has_inequalities() or self.has_bounds():
+            raise ValueError("Problem has inequalities, can't solve it")
+
+    def has_bounds(self) -> bool:
+        if self.lvar is None and self.uvar is None:
+            return False
+        lv = np.asarray(self.lvar) if self.lvar is not None else np.full(self.nvar, -np.inf)
+        uv = np.asarray(self.uvar) if self.uvar is not None else np.full(self.nvar, np.inf)
+        return bool(np.any(np.isfinite(lv)) or np.any(np.isfinite(uv)))
+
+    def has_inequalities(self) -> bool:
+        if self.ncon == 0:
+            return False
+        return bool(torch.any(self.lcon != self.ucon))
+
+    # ---- batched evaluators: x (B, n), data leaves (B, ...) or None ----
+    def F(self, x, data=None):
+        return vmap(self.residual, in_dims=(0, _dd(data)))(x, data)
+
+    def c_shifted(self, x, data=None):
+        """cons(x) - lcon, (B, ncon)."""
+        if self.ncon == 0:
+            return x.new_zeros((x.shape[0], 0))
+        c = vmap(self.cons, in_dims=(0, _dd(data)))(x, data)
+        return c - self.lcon.to(dtype=x.dtype, device=x.device)
+
+    def Jt(self, x, data=None):
+        """Jᵀ in its (B, nvar, nequ) layout, the one the solver state carries."""
+        if self.jac_residual is not None:
+            J = vmap(self.jac_residual, in_dims=(0, _dd(data)))(x, data)
+        else:
+            J = vmap(jacfwd(self.residual), in_dims=(0, _dd(data)))(x, data)
+        return J.transpose(-2, -1)
+
+    def F_and_Jt(self, x, data=None):
+        """(F(x), Jᵀ) from one forward-mode pass (the residual is evaluated
+        once, as the JAX package's linearize does)."""
+        if self.jac_residual is not None:
+            return self.F(x, data), self.Jt(x, data)
+
+        def fa(z, d):
+            y = self.residual(z, d)
+            return y, y
+
+        J, Fx = vmap(jacfwd(fa, has_aux=True), in_dims=(0, _dd(data)))(x, data)
+        return Fx, J.transpose(-2, -1)
+
+    def Jc(self, x, data=None):
+        """(B, ncon, nvar) constraint Jacobian."""
+        if self.ncon == 0:
+            return x.new_zeros((x.shape[0], 0, self.nvar))
+        fn = self.jac_cons if self.jac_cons is not None else jacfwd(self.cons)
+        return vmap(fn, in_dims=(0, _dd(data)))(x, data)
+
+    def hess_res(self, x, r, data=None):
+        """Σᵢ rᵢ ∇²Fᵢ(x), (B, n, n)."""
+        if not self.has_residual_hessian:
+            raise NotImplementedError(
+                f"problem '{self.name}' provides no residual Hessian; "
+                "use method='gauss_newton' (reference :Newton_noFHess)"
+            )
+        if self.hess_residual_weighted is not None:
+            fn = self.hess_residual_weighted
+        else:
+            fn = hessian(lambda z, w, d: (self.residual(z, d) * w).sum())
+        return vmap(fn, in_dims=(0, 0, _dd(data)))(x, r, data)
+
+    def hess_cons(self, x, y, data=None):
+        """Σᵢ yᵢ ∇²cᵢ(x), (B, n, n) (NLPModels hess with obj_weight = 0)."""
+        if self.ncon == 0:
+            return x.new_zeros((x.shape[0], self.nvar, self.nvar))
+        if self.hess_cons_weighted is not None:
+            fn = self.hess_cons_weighted
+        else:
+            fn = hessian(lambda z, w, d: (self.cons(z, d) * w).sum())
+        return vmap(fn, in_dims=(0, 0, _dd(data)))(x, y, data)
+
+
+def _as_tensor(v, dtype, device):
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+
+
+def nls_problem(
+    residual: Callable,
+    x0,
+    nequ: int,
+    cons: Optional[Callable] = None,
+    lcon=None,
+    ucon=None,
+    *,
+    y0=None,
+    lvar=None,
+    uvar=None,
+    data: Any = None,
+    name: str = "generic",
+    minimize: bool = True,
+    has_residual_hessian: bool = True,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    **analytic,
+) -> NLSProblem:
+    """Build an :class:`NLSProblem` (the ADNLSModel analog).
+
+    ``residual``/``cons`` take one argument ``f(x)`` or two ``f(x, data)``
+    and act on ONE instance: ``x`` is (nvar,).  They are batched with
+    ``torch.func.vmap``, so they must build their output vectors with
+    ``torch.stack``/``torch.cat`` of tensor expressions; ``torch.tensor([...])``
+    of tensor elements breaks under vmap.
+
+    ``dtype``/``device`` place ``x0``, ``y0`` and ``lcon``/``ucon``; by
+    default they follow ``x0`` when it is a tensor, else float64 on the CPU.
+    ``data`` is passed through as given.
+    """
+    if dtype is None:
+        dtype = x0.dtype if isinstance(x0, torch.Tensor) else torch.float64
+    if device is None:
+        device = x0.device if isinstance(x0, torch.Tensor) else torch.device("cpu")
+    x0 = _as_tensor(x0, dtype, device).reshape(-1)
+    nvar = int(x0.shape[0])
+
+    def _lift(fn):
+        if fn is None:
+            return None
+        if _wants_data(fn):
+            return fn
+        return lambda x, data, _fn=fn: _fn(x)
+
+    res = _lift(residual)
+    con = _lift(cons)
+
+    ncon = 0
+    if con is not None:
+        if lcon is None:
+            raise ValueError("constrained problem requires lcon (and ucon)")
+        lcon = torch.atleast_1d(_as_tensor(lcon, dtype, device))
+        ucon = torch.atleast_1d(_as_tensor(ucon, dtype, device)) if ucon is not None else lcon
+        ncon = int(lcon.shape[0])
+    y0 = x0.new_zeros((ncon,)) if y0 is None else _as_tensor(y0, dtype, device)
+
+    return NLSProblem(
+        residual=res,
+        nvar=nvar,
+        nequ=int(nequ),
+        x0=x0,
+        cons=con,
+        ncon=ncon,
+        lcon=lcon,
+        ucon=ucon,
+        y0=y0,
+        lvar=lvar,
+        uvar=uvar,
+        data=data,
+        name=name,
+        minimize=minimize,
+        has_residual_hessian=has_residual_hessian,
+        jac_residual=_lift(analytic.get("jac_residual")),
+        hess_residual_weighted=analytic.get("hess_residual_weighted"),
+        jac_cons=_lift(analytic.get("jac_cons")),
+        hess_cons_weighted=analytic.get("hess_cons_weighted"),
+    )

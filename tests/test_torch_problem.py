@@ -1,0 +1,91 @@
+"""PyTorch port, problem evaluators: F, c_shifted, Jᵀ, Jc and the weighted
+Hessians of the bench family and a small bundle-adjustment scene, batched,
+against the JAX package at random points, to 1e-12 in float64."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from cannoles_tpu import nls_problem as jnls  # noqa: E402
+from cannoles_tpu.models.families import bundle_adjustment as jba  # noqa: E402
+from cannoles_tpu_torch.models.families import bundle_adjustment as tba  # noqa: E402
+from cannoles_tpu_torch.models.families import lm_bench_family  # noqa: E402
+
+B = 4
+
+
+def jax_bench_family():
+    """bench.py's build_problem in float64."""
+    return jnls(
+        lambda x, d: jnp.array([x[0] - d[0], 10 * (x[1] - x[0] ** 2) - d[1]]),
+        jnp.array([-1.2, 1.0]), 2,
+        lambda x, d: jnp.array([x[0] + x[1] - d[2]]), [0.0], [0.0],
+        data=jnp.zeros((3,)), name="bench_lm_family",
+    )
+
+
+def _bench():
+    rng = np.random.default_rng(3)
+    x = rng.normal(scale=0.5, size=(B, 2)) + [-1.2, 1.0]
+    d = rng.normal(size=(B, 3))
+    return jax_bench_family(), lm_bench_family(torch.float64, "cpu"), x, d
+
+
+def _ba():
+    pj, _ = jba(2, 5, seed=1)
+    pt, _ = tba(2, 5, seed=1)
+    rng = np.random.default_rng(4)
+    x = np.asarray(pj.x0) + 0.05 * rng.normal(size=(B, pj.nvar))
+    d = {k: np.stack([np.asarray(v)] * B) for k, v in pj.data.items()}
+    return pj, pt, x, d
+
+
+FAMILIES = {"bench": _bench, "ba": _ba}
+FUNCS = ["F", "c_shifted", "Jt", "F_and_Jt", "Jc", "hess_res", "hess_cons"]
+
+
+@pytest.mark.parametrize("fn", FUNCS)
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_evaluator_matches_jax(family, fn):
+    pj, pt, x, d = FAMILIES[family]()
+    rng = np.random.default_rng(5)
+    dj = jax.tree.map(jnp.asarray, d)
+    dt = jax.tree.map(torch.as_tensor, d)
+    xt = torch.as_tensor(x)
+    if fn == "hess_res":
+        w = rng.normal(size=(B, pj.nequ))
+        ref = jax.vmap(pj.hess_res)(jnp.asarray(x), jnp.asarray(w), dj)
+        got = pt.hess_res(xt, torch.as_tensor(w), dt)
+    elif fn == "hess_cons":
+        w = rng.normal(size=(B, pj.ncon))
+        ref = jax.vmap(pj.hess_cons)(jnp.asarray(x), jnp.asarray(w), dj)
+        got = pt.hess_cons(xt, torch.as_tensor(w), dt)
+    else:
+        ref = jax.vmap(getattr(pj, fn))(jnp.asarray(x), dj)
+        got = getattr(pt, fn)(xt, dt)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    for r, g in zip(ref, got):
+        assert tuple(g.shape) == tuple(r.shape)
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12, atol=1e-12)
+
+
+def test_unconstrained_problem_shapes_and_validation():
+    from cannoles_tpu_torch import nls_problem
+
+    pb = nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]), np.zeros(2), 2)
+    x = torch.zeros((3, 2), dtype=torch.float64)
+    assert pb.c_shifted(x).shape == (3, 0)
+    assert pb.Jc(x).shape == (3, 0, 2)
+    assert pb.hess_cons(x, x[:, :0]).shape == (3, 2, 2)
+    pb.validate_for_solve()
+    bad = nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1], [0.0], [1.0])
+    with pytest.raises(ValueError, match="inequalities"):
+        bad.validate_for_solve()
+    with pytest.raises(ValueError, match="lcon"):
+        nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1])

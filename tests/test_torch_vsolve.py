@@ -1,0 +1,112 @@
+"""PyTorch port, batched solves against JAX ``vsolve`` in float64: per-lane
+status, counters and internal message equal, solutions within 1e-10.  The
+JAX side reaches the Pallas kernel in interpret mode through its
+``custom_vmap`` rule; the port runs the kernel's plain version on the CPU."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import cannoles_tpu as jc  # noqa: E402
+import cannoles_tpu_torch as tc  # noqa: E402
+from cannoles_tpu.models.families import bundle_adjustment_batch as jba_batch  # noqa: E402
+from cannoles_tpu.parallel.batch import vsolve as jvsolve  # noqa: E402
+from cannoles_tpu_torch.models.families import (  # noqa: E402
+    bundle_adjustment_batch as tba_batch,
+    lm_bench_batch,
+    lm_bench_family,
+)
+from cannoles_tpu_torch.ops import fused_ldlt  # noqa: E402
+
+FIELDS = ("status", "iter", "nfact", "nbk", "nlinsolve", "msg", "neval_F", "neval_c")
+
+
+def jax_bench_family():
+    """bench.py's build_problem in float64."""
+    return jc.nls_problem(
+        lambda x, d: jnp.array([x[0] - d[0], 10 * (x[1] - x[0] ** 2) - d[1]]),
+        jnp.array([-1.2, 1.0]), 2,
+        lambda x, d: jnp.array([x[0] + x[1] - d[2]]), [0.0], [0.0],
+        data=jnp.zeros((3,)), name="bench_lm_family",
+    )
+
+
+def assert_lanes_equal(a, b):
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(b.states, f).numpy(), np.asarray(getattr(a.states, f)),
+                                      err_msg=f)
+    ok = a.solved_mask()
+    np.testing.assert_array_equal(b.solved_mask(), ok)
+    np.testing.assert_allclose(b.solution[ok], a.solution[ok], rtol=0, atol=1e-10)
+    # λ is pinned down only to the dual tolerance of the first-order exit
+    # (ε_tol = √eps·(1 + ‖∇L₀‖) ≈ 1.5e-8·(1 + ‖∇L₀‖) in float64)
+    np.testing.assert_allclose(b.multipliers[ok], a.multipliers[ok], rtol=0, atol=1e-8)
+    assert b.summary() == a.summary()
+
+
+def run_bench(x0, d, **kw):
+    pj, pt = jax_bench_family(), lm_bench_family(torch.float64, "cpu")
+    sj = jc.CaNNOLeSSolver(pj, method="lm", linsolve="pallas", kkt="full")
+    st = tc.CaNNOLeSSolver(pt, method="lm", linsolve="pallas", kkt="full")
+    a = jvsolve(pj, jnp.asarray(x0), data_batch=jnp.asarray(d), solver=sj, max_iter=50, rescue=True, **kw)
+    b = tc.vsolve(pt, x0, data_batch=d, solver=st, max_iter=50, rescue=True, **kw)
+    return a, b, st
+
+
+def test_vsolve_bench_family_matches_jax():
+    x0, d = lm_bench_batch(8)
+    before = fused_ldlt.LAUNCHES
+    a, b, _ = run_bench(x0, d)
+    assert_lanes_equal(a, b)
+    assert fused_ldlt.LAUNCHES == before  # the CPU runs the plain version
+
+
+def test_vsolve_rescue_budget_stage_matches_jax():
+    """max_eval=10 caps every lane, so rescue stage 0 re-solves them all
+    with the lifted budgets."""
+    x0, d = lm_bench_batch(8)
+    a, b, st = run_bench(x0, d, max_eval=10)
+    assert_lanes_equal(a, b)
+    pre = tc.vsolve(st.problem, x0, data_batch=d, solver=st, max_iter=50, max_eval=10)
+    assert (pre.status == int(tc.Status.MAX_EVAL)).any()
+    assert b.solved_mask().all()
+
+
+def test_vsolve_poisoned_lane_matches_jax():
+    x0, d = lm_bench_batch(8)
+    d[3, 0] = np.nan
+    a, b, _ = run_bench(x0, d)
+    assert_lanes_equal(a, b)
+    assert b.status[3] == int(tc.Status.EXCEPTION)
+    assert np.delete(b.solved_mask(), 3).all()
+
+
+def test_vsolve_bundle_adjustment_matches_jax():
+    pj, x0j, dj, _ = jba_batch(4, 2, 5)
+    pt, x0t, dt, _ = tba_batch(4, 2, 5)
+    sj = jc.CaNNOLeSSolver(pj, method="gauss_newton", kkt="condensed", linsolve="pallas")
+    st = tc.CaNNOLeSSolver(pt, method="gauss_newton", kkt="condensed", linsolve="pallas")
+    assert st.quality_gate and sj.quality_gate  # N = 34 ≥ 16
+    a = jvsolve(pj, x0j, data_batch=dj, solver=sj, max_iter=40)
+    b = tc.vsolve(pt, x0t, data_batch=dt, solver=st, max_iter=40)
+    assert_lanes_equal(a, b)
+
+
+def test_vsolve_chunks_and_auto_routing():
+    """Sequential chunks give the lanes of one flat batch; 'auto' routes a
+    small KKT to the fused kernel; mesh and max_time are out of the slice."""
+    x0, d = lm_bench_batch(8, seed=2)
+    pt = lm_bench_family(torch.float64, "cpu")
+    flat = tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50)
+    chunked = tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50, chunk_size=4)
+    assert flat.solver.linsolve == "pallas" and flat.solver.kkt == "full"
+    for f in FIELDS + ("x", "lam"):
+        assert torch.equal(getattr(flat.states, f), getattr(chunked.states, f)), f
+    with pytest.warns(UserWarning, match="chunk_size=3 ignored"):
+        tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50, chunk_size=3)
+    for kw in (dict(mesh=object()), dict(max_time=1.0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tc.vsolve(pt, x0, data_batch=d, **kw)
