@@ -14,9 +14,13 @@ count depends on the data, so here the state machine is written batched:
   lane of JAX's batched ``while_loop`` does, so each lane follows the
   trajectory it would follow alone.
 
+``linsolve='chol'`` is the two-level Cholesky of the condensed system:
+``torch.linalg.cholesky`` below ``pallas_chol_min`` (the counterpart of
+XLA's cholesky) and the blocked Cholesky kernels of ``ops/block_chol.py`` at
+or above it.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``linsolve='chol'`` and ``'cpp'``, ``multiplier_refit``,
-``lm_damping`` and ``resume_from``.  The XLA/TPU seams ``_scalar_mode``,
+item): ``linsolve='cpp'`` and ``resume_from``.  The XLA/TPU seams ``_scalar_mode``,
 ``_reuse_trial_linearization``, ``_descent_rescue_eigh`` and
 ``matmul_precision`` are not ported: float32 matmuls run in full float32
 (TF32 is switched off explicitly, see ``CaNNOLeSSolver.__init__``), which is
@@ -31,6 +35,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.block_chol import block_cho_solve, block_cholesky, block_forward_solve
 from ..ops.cgls import cgls
 from ..ops.fused_ldlt import fused_ldlt_solve
 from ..ops.ldlt import eigh_factor, eigh_solve, inertia_success, ldlt_factor, ldlt_solve
@@ -60,7 +65,6 @@ _METHOD_ALIASES = {
 AVAILABLE_LINSOLVE = ("ldlt", "eigh", "pallas", "cpp", "chol")
 _LINSOLVE_ALIASES = {"ldlfactorizations": "ldlt", "ma57": "eigh", "pallas_ldl": "pallas"}
 _NOT_PORTED = {
-    "chol": "linsolve='chol' (two-level Cholesky) is not ported yet: ROADMAP queue 1 item 6",
     "cpp": "linsolve='cpp' (host C++ LDLT) is not ported yet: ROADMAP queue 1 item 14",
 }
 
@@ -171,6 +175,18 @@ def _vdot(a, b):
     return (a * b).sum(-1)
 
 
+def _cholesky_nan(A):
+    """Batched lower Cholesky factor, NaN on the lanes where it fails (what
+    XLA's cholesky returns), with no host sync."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[:, None, None], L, torch.full_like(L, float("nan")))
+
+
+def _cho_solve(L, b):
+    """Solve (L Lᵀ) x = b for a batch of vectors b (B, k)."""
+    return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+
+
 class _InnerCarry(NamedTuple):
     s: SolverState
     normdualhat: torch.Tensor
@@ -204,12 +220,14 @@ class CaNNOLeSSolver:
         always_accept_extrapolation: bool = False,
         lm_damping: bool = False,
         multiplier_refit: bool = False,
+        block_size: int = 32,
         kkt: str = "full",
         params: Optional[Params] = None,
         delta_min: Optional[float] = None,
         quality_gate: Optional[bool] = None,
         robust_fallback: bool = False,
         descent_rescue: bool = True,
+        pallas_chol_min: Optional[int] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
     ):
@@ -226,15 +244,24 @@ class CaNNOLeSSolver:
             )
         if linsolve in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[linsolve])
-        if lm_damping:
-            raise NotImplementedError("lm_damping is not ported yet: ROADMAP queue 1 item 6")
-        if multiplier_refit:
-            raise NotImplementedError("multiplier_refit is not ported yet: ROADMAP queue 1 item 6")
         self.linsolve = linsolve
         self.kkt = kkt
         self.problem = problem
         self.use_initial_multiplier = bool(use_initial_multiplier)
         self.always_accept_extrapolation = bool(always_accept_extrapolation)
+        # per-column LM scaling of the KKT's top-left block (method='lm')
+        self.lm_damping = bool(lm_damping)
+        # per-outer CGLS multiplier refit, kept where it lowers the dual norm
+        self.multiplier_refit = bool(multiplier_refit)
+        # accepted so that the JAX package's calls carry over; the port's
+        # ldlt has no panels and its fused kernel no lane blocks, so no
+        # backend reads it
+        self.block_size = int(block_size)
+        # linsolve='chol': n at or above which the blocked Cholesky kernels
+        # factor the n×n block instead of torch.linalg.cholesky.  Off by
+        # default, as in the JAX package (a TPU measurement; the card's
+        # times are in PERF.md)
+        self.pallas_chol_min = (1 << 31) if pallas_chol_min is None else int(pallas_chol_min)
         # backward-error gate: default on where fixed-order elimination has
         # room to misjudge inertia (the JAX package measured breakdown at N=21)
         N = problem.nvar + problem.nequ + problem.ncon
@@ -273,9 +300,10 @@ class CaNNOLeSSolver:
     # ------------------------------------------------------------------
     # pieces
     # ------------------------------------------------------------------
-    def _H_block(self, x, lam, r, Fx, data):
+    def _H_block(self, x, lam, r, Fx, JxT, damp, data):
         """Top-left KKT block: the method's residual Hessian minus the
-        constraint curvature term."""
+        constraint curvature term, plus (LM with ``lm_damping``) the
+        per-column scaling clamp(damp)·‖J[:, j]‖²."""
         pb = self.problem
         n = pb.nvar
         if self.method in ("newton", "newton_vanishing"):
@@ -286,6 +314,9 @@ class CaNNOLeSSolver:
             Hres = x.new_zeros((x.shape[0], n, n))
         if pb.ncon > 0:
             Hres = Hres - pb.hess_cons(x, lam, data)
+        if self.method == "lm" and self.lm_damping:
+            scale = torch.clamp(damp, 1e-10, 1e8)
+            Hres = Hres + torch.diag_embed(scale[:, None] * (JxT * JxT).sum(-1))
         return Hres
 
     def _assemble_kkt(self, H, JxT, Jcx, delta):
@@ -347,9 +378,57 @@ class CaNNOLeSSolver:
         if self.linsolve == "eigh":
             fac = eigh_factor(W, pr.eig_tol)
             return eigh_solve(fac, rhs, pr.eig_tol), inertia_success(fac.vec, fac.mat, n, pr.eig_tol)
+        if self.linsolve == "chol":
+            return self._attempt_chol(W, rhs)
         fac = ldlt_factor(W, pr.eig_tol)
         success = inertia_success(fac.vec, fac.mat, n, pr.eig_tol)
         return ldlt_solve(fac, rhs, pr.eig_tol), success
+
+    def _attempt_chol(self, W, rhs):
+        """Two-level Cholesky on the condensed quasi-definite system
+        K = [M Jcᵀ; Jc −δI]: In(K) = (n, p, 0) ⟺ M ≻ 0, so success is the
+        Cholesky of M finite with every pivot above eig_tol, the Schur block
+        S = δI + Zᵀ Z (Z = L⁻¹Jcᵀ) factored, and the solution finite.  The
+        n×n factor takes ``torch.linalg.cholesky`` below ``pallas_chol_min``
+        (NaN where it fails, as XLA's) and the blocked Cholesky kernels at
+        or above it (nb = 256, as the JAX package hardcodes)."""
+        eig_tol = self.params.eig_tol
+        n, p = self.problem.nvar, self.problem.ncon
+        M = W[:, :n, :n]
+        bx = rhs[:, :n]
+        if n >= self.pallas_chol_min:
+            facM = block_cholesky(M, eig_tol, nb=256)
+            okM = facM.ok
+
+            def M_solve(b):
+                return block_cho_solve(facM, b)
+
+            def M_fwd(b):
+                return block_forward_solve(facM, b)
+        else:
+            Lm = _cholesky_nan(M)
+            dlm = torch.diagonal(Lm, dim1=-2, dim2=-1)
+            okM = torch.isfinite(Lm).flatten(1).all(-1) & (dlm * dlm > eig_tol).all(-1)
+
+            def M_solve(b):
+                return _cho_solve(Lm, b)
+
+            def M_fwd(b):
+                return torch.linalg.solve_triangular(Lm, b, upper=False)
+        if p == 0:
+            sol = M_solve(bx)
+            return sol, okM & torch.isfinite(sol).all(-1)
+        Jc = W[:, n:, :n]
+        delta = -W[:, n, n]  # the (2,2) block is -δI (rho touches only the x-diagonal)
+        bc = rhs[:, n:]
+        Z = M_fwd(Jc.mT)  # L Z = Jcᵀ: (B, n, p), zero rows where L is padded
+        S = delta[:, None, None] * torch.eye(p, dtype=W.dtype, device=W.device) + Z.mT @ Z
+        Ls = _cholesky_nan(S)
+        okS = torch.isfinite(Ls).flatten(1).all(-1)
+        zl = _cho_solve(Ls, _mv(Jc, M_solve(bx)) - bc)
+        zx = M_solve(bx - _mv(Jc.mT, zl))
+        sol = torch.cat([zx, zl], -1)
+        return sol, okM & okS & torch.isfinite(sol).all(-1)
 
     def _rho_ladder(self, attempt, rhs, rho_old, active):
         """The reference's exact rho schedule around one factorization seam:
@@ -555,7 +634,7 @@ class CaNNOLeSSolver:
     def _solve_system(self, s: SolverState, act) -> SolverState:
         pb, pr = self.problem, self.params
         n, m, p = pb.nvar, pb.nequ, pb.ncon
-        H = self._H_block(s.x, s.lam, s.r, s.Fx, s.data)
+        H = self._H_block(s.x, s.lam, s.r, s.Fx, s.JxT, s.damp, s.data)
         bad_direction = None
         if self.descent_rescue:
             # the same slope as trial_step's Dϕ; extrapolation iterations
@@ -791,6 +870,21 @@ class CaNNOLeSSolver:
             )
         s = c.s._replace(normdual=c.normdualhat, normprimal=c.normprimalhat)
 
+        if self.multiplier_refit and p > 0:
+            # per-outer CGLS multiplier refit, kept only where it strictly
+            # lowers the dual norm
+            JcT = s.Jcx.transpose(-2, -1)
+            Jxtr_f = _mv(s.JxT, s.r)
+            lam_fit = cgls(JcT, Jxtr_f)
+            dual_fit = Jxtr_f - _mv(JcT, lam_fit)
+            nd_fit = norm_inf(dual_fit)
+            take = (nd_fit < s.normdual) & (~s.broken)
+            s = s._replace(
+                lam=_sel(take, lam_fit, s.lam),
+                dual=_sel(take, dual_fit, s.dual),
+                normdual=torch.where(take, nd_fit, s.normdual),
+            )
+
         # outer bookkeeping
         sd = self._dual_scaling(s.lam)
         first_order = torch.maximum(s.normdual / sd, s.normprimal) <= s.epstol
@@ -993,9 +1087,9 @@ def cannoles(
 
     Keyword arguments follow the JAX package's ``cannoles``: ``method``
     ('newton' | 'lm' | 'gauss_newton' | 'newton_vanishing'), ``linsolve``
-    ('auto' | 'ldlt' | 'eigh' | 'pallas'; 'auto' is 'ldlt' with the in-loop
-    eigh retry, or 'chol' on a condensed Gauss–Newton/LM system, which is not
-    ported yet), ``kkt`` ('auto' | 'full' | 'condensed'), the budgets
+    ('auto' | 'ldlt' | 'eigh' | 'pallas' | 'chol'; 'auto' is 'chol' on a
+    condensed Gauss–Newton/LM system, else 'ldlt', with the in-loop eigh
+    retry), ``kkt`` ('auto' | 'full' | 'condensed'), ``multiplier_refit``, the budgets
     ``max_iter``, ``max_eval``, ``max_inner``, ``max_time``, the tolerances
     ``atol``, ``rtol``, ``Fatol``, ``Frtol``, ``verbose`` and ``callback``.
     ``dtype``/``device`` default to those of ``problem.x0``.

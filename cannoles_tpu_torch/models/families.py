@@ -1,8 +1,8 @@
-"""Problem families of the batched main path.
+"""Problem families of the port's paths.
 
 Port of ``cannoles_tpu/models/families.py`` (``bundle_adjustment`` and
-``bundle_adjustment_batch``) plus the bench family of ``bench.py`` and its
-batch draw.
+``bundle_adjustment_batch``) plus two problems of ``bench.py``: the bench
+family with its batch draw, and the large rung's dense problem.
 Observations, starts and gauge constants come from the same numpy code and
 seeds as in the JAX package, so both packages get identical data.
 """
@@ -16,7 +16,13 @@ import torch
 
 from ..problem import NLSProblem, nls_problem
 
-__all__ = ["bundle_adjustment", "bundle_adjustment_batch", "lm_bench_family", "lm_bench_batch"]
+__all__ = [
+    "bundle_adjustment",
+    "bundle_adjustment_batch",
+    "lm_bench_family",
+    "lm_bench_batch",
+    "large_rung_problem",
+]
 
 
 def lm_bench_family(dtype: torch.dtype, device) -> NLSProblem:
@@ -52,6 +58,41 @@ def lm_bench_batch(B: int, seed: int = 0):
         axis=1,
     )
     return x0, d
+
+
+def large_rung_problem(
+    m: int = 8192, n: int = 1024, seed: int = 0, dtype: torch.dtype = torch.float32, device="cpu"
+):
+    """The large rung's problem (port of ``bench.py:run_large_rung``,
+    ``:281-296``): F(x) = B1 x + 0.1 sin(B2 x) − y with y = B1 x_true +
+    0.1 sin(B2 x_true), x0 = 0, unconstrained.  B1, B2 and x_true are drawn
+    as bench.py draws them (``default_rng(seed)``, float32 draws, B/√n); y is
+    computed in ``dtype`` on ``device``.
+
+    Returns ``(problem, x_true, data)``: ``data`` holds the numpy B1, B2
+    (float64 arrays of float32 draws scaled by 1/√n, as bench.py hands them
+    to JAX) and x_true is the float32 draw."""
+    rng = np.random.default_rng(seed)
+    B1 = rng.normal(size=(m, n)).astype(np.float32) / np.sqrt(n)
+    B2 = rng.normal(size=(m, n)).astype(np.float32) / np.sqrt(n)
+    x_true = rng.normal(size=n).astype(np.float32)
+
+    def model(x, d):
+        return d["B1"] @ x + 0.1 * torch.sin(d["B2"] @ x)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    data = {"B1": t(B1), "B2": t(B2)}
+    data["y"] = model(t(x_true), data)
+    pb = nls_problem(
+        lambda x, d: model(x, d) - d["y"],
+        torch.zeros(n, dtype=dtype, device=device),
+        m,
+        data=data,
+        name=f"bench_large_{m}x{n}",
+    )
+    return pb, x_true, {"B1": B1, "B2": B2}
 
 
 def _rodrigues(w, X):

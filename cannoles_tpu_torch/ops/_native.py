@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ctypes.  The build runs at first use,
-into ``cannoles_tpu_torch/_build/`` (git-ignored), under a file name keyed
-by a hash of the sources and flags, so a fresh checkout builds everything it
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+of its own with a plain C interface, loaded with ctypes; the ``nvcc``
+processes of all sources run at once.  The build runs at first use, into
+``cannoles_tpu_torch/_build/`` (git-ignored), under a file name keyed by a
+hash of the source and flags, so a fresh checkout builds everything it
 needs and a changed source is rebuilt.  A missing ``nvcc`` or a failed build
 raises with the compiler's output; nothing falls back.  Nothing is built
 when the package is imported.
@@ -19,23 +20,40 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 
 __all__ = ["load", "BUILD_INFO"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCES = [_PKG / "csrc" / "fused_ldlt.cu"]
 _BUILD_DIR = _PKG / "_build"
-# --fmad=false: no contracted multiply-adds, so the kernel's arithmetic is
-# the plain PyTorch version's operation for operation.
+# --fmad=false: no contracted multiply-adds, so the kernels' elementwise
+# arithmetic is the plain PyTorch versions' operation for operation.
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# source -> {exported function: argtypes}; every function returns an int
+# (cudaGetLastError() after its launches)
+_SOURCES = {
+    "fused_ldlt.cu": {
+        name: [_P, _P, _P, _P, _I, _I, _D, _P]
+        for name in ("cannoles_fused_ldlt_f32", "cannoles_fused_ldlt_f64")
+    },
+    "block_chol.cu": {
+        **{name: [_P, _P, _P, _I, _I, _D, _P]
+           for name in ("cannoles_chol_block_f32", "cannoles_chol_block_f64")},
+        **{name: [_P, _P, _P, _P, _I, _I, _I, _D, _P]
+           for name in ("cannoles_chol_fused_f32", "cannoles_chol_fused_f64")},
+    },
+}
+
 _LOCK = threading.Lock()
 _LIB = None
-# filled by the first load(): library path, build seconds (0 when cached),
-# and ptxas's register/shared-memory report
+# filled by the first load(): per source, the library path, the build
+# seconds (0 when cached) and ptxas's register/shared-memory report; and
+# the wall seconds of the whole (parallel) build
 BUILD_INFO: dict = {}
 
 
@@ -49,41 +67,57 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
 
 
-def _build() -> pathlib.Path:
-    h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.read_bytes())
+def _lib_path(src: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(_FLAGS).encode())
-    lib = _BUILD_DIR / f"libcannoles_kernels_{h.hexdigest()[:16]}.so"
-    if lib.exists():
-        BUILD_INFO.update(path=str(lib), seconds=0.0, ptxas="(cached)")
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    return _BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> dict:
+    """Build every source not built yet, all nvcc processes at once;
+    returns {source name: library path}."""
+    libs, procs = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    BUILD_INFO.update(path=str(lib), seconds=time.perf_counter() - t0, ptxas=proc.stderr)
-    return lib
+    for name in _SOURCES:
+        src = _PKG / "csrc" / name
+        lib = _lib_path(src)
+        libs[name] = lib
+        if lib.exists():
+            BUILD_INFO[name] = dict(path=str(lib), seconds=0.0, ptxas="(cached)")
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs[name] = (proc, cmd, tmp, lib)
+    failed = []
+    for name, (proc, cmd, tmp, lib) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+            continue
+        os.replace(tmp, lib)
+        BUILD_INFO[name] = dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    BUILD_INFO["wall_seconds"] = time.perf_counter() - t0
+    return libs
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' library, built on first call."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C functions as attributes, every library built on the
+    first call."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
-            for name in ("cannoles_fused_ldlt_f32", "cannoles_fused_ldlt_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            fns = {"_libs": []}  # the CDLLs stay referenced while loaded
+            for name, path in _build().items():
+                lib = ctypes.CDLL(str(path))
+                fns["_libs"].append(lib)
+                for fn_name, argtypes in _SOURCES[name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[fn_name] = fn
+            _LIB = types.SimpleNamespace(**fns)
         return _LIB

@@ -126,7 +126,7 @@ def vsolve(
     ``linsolve='auto'`` takes the fused LDLᵀ kernel ('pallas') where the
     KKT size fits the kernel's cap (``ops.fused_ldlt.max_n``), else the
     JAX package's fallbacks ('chol' on a condensed Gauss–Newton/LM system,
-    not ported yet, or 'ldlt').  ``chunk_size``: run the batch in
+    or 'ldlt').  ``chunk_size``: run the batch in
     sequential chunks of this many lanes (it must divide B).
 
     ``rescue``: re-solve the unsolved lanes from their original starts and
@@ -238,6 +238,9 @@ def _rescue_unsolved(solver, result, x0_batch, lam0_batch, data_batch, cfg, skip
                 kkt=solver.kkt,
                 use_initial_multiplier=solver.use_initial_multiplier,
                 always_accept_extrapolation=solver.always_accept_extrapolation,
+                lm_damping=solver.lm_damping,
+                multiplier_refit=solver.multiplier_refit,
+                block_size=solver.block_size,
                 params=solver.params,
                 dtype=solver.dtype,
                 device=solver.device,

@@ -84,8 +84,9 @@ def test_import_never_pulls_in_jax():
     code = (
         "import sys\n"
         "import cannoles_tpu_torch, cannoles_tpu_torch.parallel.batch, "
-        "cannoles_tpu_torch.models.families, cannoles_tpu_torch.utils.convert, "
-        "cannoles_tpu_torch.ops._native, chip_smoke\n"
+        "cannoles_tpu_torch.models.families, cannoles_tpu_torch.models.ba_large, "
+        "cannoles_tpu_torch.utils.convert, cannoles_tpu_torch.ops._native, "
+        "cannoles_tpu_torch.ops.block_chol, chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('jax', 'cannoles_tpu') or m.startswith(('jax.', 'cannoles_tpu.')))\n"
         "assert not bad, bad\n"
