@@ -7,14 +7,20 @@ solve is the case B = 1.  The fused LDLᵀ factor+solve of every ρ-ladder
 attempt (``linsolve='pallas'``) is a hand-written CUDA kernel
 (``csrc/fused_ldlt.cu``), built with nvcc at first use on a CUDA tensor.
 
-Quick start::
+Problems and the model builders go to the card unless the caller passes
+``device="cpu"``; without a card they raise instead of falling back.  The
+solver follows the problem's device.
+
+Quick start (on the card)::
 
     import torch
     from cannoles_tpu_torch import nls_problem, cannoles
 
     nls = nls_problem(lambda x: torch.stack([x[0] - 1, 10 * (x[1] - x[0] ** 2)]),
-                      torch.tensor([-1.2, 1.0], dtype=torch.float64), 2)
+                      [-1.2, 1.0], 2)
     stats = cannoles(nls)
+
+On the CPU: ``nls_problem(..., device="cpu")``.
 
 Batched::
 

@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..problem import NLSProblem, nls_problem
+from ..problem import NLSProblem, default_device, nls_problem
 
 __all__ = ["project_point", "large_bundle_adjustment"]
 
@@ -63,7 +63,7 @@ def large_bundle_adjustment(
     gauge: str = "constraints",
     visibility: float = 1.0,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> Tuple[NLSProblem, np.ndarray]:
     """Synthesize one consistent large scene; returns (problem, x_true).
 
@@ -74,7 +74,10 @@ def large_bundle_adjustment(
 
     ``gauge``: ``"constraints"`` pins pose 0 and the squared baseline with 7
     equality constraints; ``"fixed"`` freezes pose 0's six coordinates and
-    camera 1's x translation inside the residual, unconstrained."""
+    camera 1's x translation inside the residual, unconstrained.
+
+    ``device`` defaults to the card; ``"cpu"`` builds on the CPU."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     C, P = n_cams, n_pts
     angles = np.linspace(-0.4, 0.4, C)
@@ -147,5 +150,6 @@ def large_bundle_adjustment(
         None if cons is None else np.zeros(7),
         data=data,
         name=f"ba_large_{C}c{P}p_{gauge}" + (f"_vis{visibility:g}" if masked else ""),
+        device=device,
     )
     return pb, x_true

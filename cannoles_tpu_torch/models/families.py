@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..problem import NLSProblem, nls_problem
+from ..problem import NLSProblem, default_device, nls_problem
 
 __all__ = [
     "bundle_adjustment",
@@ -45,6 +45,7 @@ def lm_bench_family(dtype: torch.dtype, device) -> NLSProblem:
         [0.0],
         data=torch.zeros((3,), dtype=dtype, device=device),
         name="bench_lm_family",
+        device=device,
     )
 
 
@@ -61,17 +62,19 @@ def lm_bench_batch(B: int, seed: int = 0):
 
 
 def large_rung_problem(
-    m: int = 8192, n: int = 1024, seed: int = 0, dtype: torch.dtype = torch.float32, device="cpu"
+    m: int = 8192, n: int = 1024, seed: int = 0, dtype: torch.dtype = torch.float32, device=None
 ):
     """The large rung's problem (port of ``bench.py:run_large_rung``,
     ``:281-296``): F(x) = B1 x + 0.1 sin(B2 x) − y with y = B1 x_true +
     0.1 sin(B2 x_true), x0 = 0, unconstrained.  B1, B2 and x_true are drawn
     as bench.py draws them (``default_rng(seed)``, float32 draws, B/√n); y is
-    computed in ``dtype`` on ``device``.
+    computed in ``dtype`` on ``device`` (default: the card; ``"cpu"`` to
+    build on the CPU).
 
     Returns ``(problem, x_true, data)``: ``data`` holds the numpy B1, B2
     (float64 arrays of float32 draws scaled by 1/√n, as bench.py hands them
     to JAX) and x_true is the float32 draw."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     B1 = rng.normal(size=(m, n)).astype(np.float32) / np.sqrt(n)
     B2 = rng.normal(size=(m, n)).astype(np.float32) / np.sqrt(n)
@@ -91,6 +94,7 @@ def large_rung_problem(
         m,
         data=data,
         name=f"bench_large_{m}x{n}",
+        device=device,
     )
     return pb, x_true, {"B1": B1, "B2": B2}
 
@@ -115,12 +119,14 @@ def bundle_adjustment(
     seed: int = 0,
     focal: float = 1.0,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device=None,
 ) -> Tuple[NLSProblem, np.ndarray]:
     """Synthesize a consistent planar-pinhole BA scene; returns
     (problem, x_true).  Parameters ``[poses (n_cams, 6); points (n_pts, 3)]``
     with pose = (angle-axis w, translation t), u = f·(R(X−t))_{xy}/z; the
-    gauge is fixed by 7 equality constraints (pose 0 pinned, ‖t₁−t₀‖² fixed)."""
+    gauge is fixed by 7 equality constraints (pose 0 pinned, ‖t₁−t₀‖² fixed).
+    ``device`` defaults to the card; ``"cpu"`` builds on the CPU."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     angles = np.linspace(-0.3, 0.3, n_cams)
     t_true = np.stack([4.0 * np.sin(angles), 0.3 * rng.normal(size=n_cams), -6.0 + np.cos(angles)], axis=1)
@@ -186,6 +192,7 @@ def bundle_adjustment(
         np.zeros(7),
         data={"obs": t(obs), "pose0": t(pose0), "base2": t([base2])},
         name=f"bundle_adjustment_{n_cams}c{n_pts}p",
+        device=device,
     )
     return pb, x_true
 
@@ -197,10 +204,12 @@ def bundle_adjustment_batch(
     noise: float = 0.0,
     seed: int = 0,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device=None,
 ):
     """``n_scenes`` independent BA instances of one family: returns
-    (problem, x0_batch (B, n), data_batch (leaves (B, ...)), x_true_batch)."""
+    (problem, x0_batch (B, n), data_batch (leaves (B, ...)), x_true_batch).
+    ``device`` defaults to the card; ``"cpu"`` builds on the CPU."""
+    device = default_device(device)
     pb0, x0s, datas, trues = None, [], [], []
     for i in range(n_scenes):
         pb, xt = bundle_adjustment(n_cams, n_pts, noise=noise, seed=seed + i, dtype=dtype, device=device)

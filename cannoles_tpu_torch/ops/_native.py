@@ -42,10 +42,8 @@ _SOURCES = {
         for name in ("cannoles_fused_ldlt_f32", "cannoles_fused_ldlt_f64")
     },
     "block_chol.cu": {
-        **{name: [_P, _P, _P, _I, _I, _D, _P]
-           for name in ("cannoles_chol_block_f32", "cannoles_chol_block_f64")},
-        **{name: [_P, _P, _P, _P, _I, _I, _I, _D, _P]
-           for name in ("cannoles_chol_fused_f32", "cannoles_chol_fused_f64")},
+        name: [_P, _P, _P, _P, _I, _I, _I, _D, _P]
+        for name in ("cannoles_chol_f32", "cannoles_chol_f64")
     },
 }
 

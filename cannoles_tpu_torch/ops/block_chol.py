@@ -1,8 +1,8 @@
-"""Blocked Cholesky of the condensed KKT system: the CUDA kernels, their
+"""Blocked Cholesky of the condensed KKT system: the CUDA kernel, its
 plain versions, the driver and the block solves.
 
 Port of ``cannoles_tpu/ops/pallas_chol.py``.  Its two Pallas TPU kernels
-become the two entry points of the hand-written CUDA source
+become two wrappers of the hand-written CUDA kernel in
 ``csrc/block_chol.cu`` (design note at the top of that file):
 
 * :func:`chol_block` (``_chol_block_kernel``): factor one (nb, nb) SPD
@@ -11,10 +11,12 @@ become the two entry points of the hand-written CUDA source
 * :func:`chol_fused` (``_chol_fused_kernel``): the whole (N, N) matrix in
   place, panel by panel.  Plain version :func:`chol_fused_reference`.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``BLOCK_LAUNCHES`` and ``FUSED_LAUNCHES`` count the launches.  The
-caller's matrix is never changed: the kernels work in place on the L output,
-which the wrapper allocates and fills.
+Both wrappers launch the same persistent cooperative kernel, once per
+call (a block is the case N = nb).  A CPU tensor takes the plain version; a
+CUDA tensor launches the kernel or raises.  ``BLOCK_LAUNCHES`` and
+``FUSED_LAUNCHES`` count the wrappers' launches.  The caller's matrix is
+never changed: the kernel works in place on the L output, which the wrapper
+allocates and fills.
 
 :func:`block_cholesky` (``pallas_cholesky``) keeps the JAX package's rules:
 nb clamped to [128, 512], N padded with identity to a multiple of nb, the
@@ -138,12 +140,32 @@ def _check(name, A):
         raise TypeError(f"{name}: dtype {A.dtype}, need float32 or float64")
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"{name}: shape {tuple(A.shape)}, need (B, N, N)")
-    if not 0 < A.shape[0] < 65536:
-        raise ValueError(f"{name}: B={A.shape[0]} outside the grid (1..65535)")
+    if not 0 < A.shape[0] < 2 ** 31:
+        raise ValueError(f"{name}: B={A.shape[0]} outside 1..2**31-1 (the kernel's int batch)")
 
 
 def _fn(lib, stem, dtype):
     return getattr(lib, f"{stem}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def _launch(name, A, N, nb, tol):
+    """Copy A into the L output and run the cooperative kernel on it:
+    returns (L, Linv (B, N/nb, nb, nb), d (B, N))."""
+    B = A.shape[0]
+    L = torch.empty_like(A, memory_format=torch.contiguous_format)
+    L.copy_(A)
+    Linv = A.new_empty((B, N // nb, nb, nb))
+    d = A.new_empty((B, N))
+    scratch = A.new_empty((B, max(N * nb, 32 * 32)))  # the kernel's staging and products
+    from . import _native
+
+    fn = _fn(_native.load(), "cannoles_chol", A.dtype)
+    with torch.cuda.device(A.device):
+        err = fn(L.data_ptr(), Linv.data_ptr(), d.data_ptr(), scratch.data_ptr(), B, N, nb,
+                 float(tol), torch.cuda.current_stream(A.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    return L, Linv, d
 
 
 def chol_block(A: torch.Tensor, tol: float):
@@ -157,21 +179,10 @@ def chol_block(A: torch.Tensor, tol: float):
     _check("chol_block", A)
     B, nb, _ = A.shape
     if nb > 1024:
-        raise ValueError(f"chol_block: nb={nb} above the kernel's 1024 threads")
-    L = torch.empty_like(A, memory_format=torch.contiguous_format)
-    L.copy_(A)
-    Linv = torch.empty_like(L)
-    d = A.new_empty((B, nb))
-    from . import _native
-
-    fn = _fn(_native.load(), "cannoles_chol_block", A.dtype)
-    with torch.cuda.device(A.device):
-        err = fn(L.data_ptr(), Linv.data_ptr(), d.data_ptr(), B, nb, float(tol),
-                 torch.cuda.current_stream(A.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"chol_block: kernel launch failed with CUDA error {err}")
+        raise ValueError(f"chol_block: nb={nb} outside 1..1024")
+    L, Linv, d = _launch("chol_block", A, nb, nb, tol)
     BLOCK_LAUNCHES += 1
-    return L, Linv, d
+    return L, Linv[:, 0], d
 
 
 def chol_fused(A: torch.Tensor, tol: float, nb: int):
@@ -187,21 +198,9 @@ def chol_fused(A: torch.Tensor, tol: float, nb: int):
     B, N, _ = A.shape
     if not (0 < nb <= 1024 and N % nb == 0):
         raise ValueError(f"chol_fused: N={N} is not a multiple of nb={nb} in 1..1024")
-    L = torch.empty_like(A, memory_format=torch.contiguous_format)
-    L.copy_(A)
-    Linv = A.new_empty((B, N // nb, nb, nb))
-    d = A.new_empty((B, N))
-    scratch = A.new_empty((B, N, nb))  # L21 of the current panel
-    from . import _native
-
-    fn = _fn(_native.load(), "cannoles_chol_fused", A.dtype)
-    with torch.cuda.device(A.device):
-        err = fn(L.data_ptr(), Linv.data_ptr(), d.data_ptr(), scratch.data_ptr(), B, N, nb,
-                 float(tol), torch.cuda.current_stream(A.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"chol_fused: kernel launch failed with CUDA error {err}")
+    out = _launch("chol_fused", A, N, nb, tol)
     FUSED_LAUNCHES += 1
-    return L, Linv, d
+    return out
 
 
 def uses_fused(N: int, dtype: torch.dtype) -> bool:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch.func import hessian, jacfwd, vmap
 
-__all__ = ["NLSProblem", "nls_problem", "Counters"]
+__all__ = ["NLSProblem", "nls_problem", "default_device", "Counters"]
 
 
 class Counters:
@@ -172,6 +172,22 @@ def _as_tensor(v, dtype, device):
     return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
 
 
+def default_device(device=None, like=None) -> torch.device:
+    """Where the port's entry points place a problem: ``device`` when given;
+    else ``like``'s CUDA device when ``like`` is a tensor on one; else the
+    card.  Without a card it raises rather than fall back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(like, torch.Tensor) and like.device.type == "cuda":
+        return like.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; "
+            "pass device=\"cpu\" to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def nls_problem(
     residual: Callable,
     x0,
@@ -199,14 +215,15 @@ def nls_problem(
     ``torch.stack``/``torch.cat`` of tensor expressions; ``torch.tensor([...])``
     of tensor elements breaks under vmap.
 
-    ``dtype``/``device`` place ``x0``, ``y0`` and ``lcon``/``ucon``; by
-    default they follow ``x0`` when it is a tensor, else float64 on the CPU.
-    ``data`` is passed through as given.
+    ``dtype``/``device`` place ``x0``, ``y0`` and ``lcon``/``ucon``.  The
+    dtype follows ``x0`` when it is a tensor, else float64.  The device
+    defaults to the card (an ``x0`` already on a CUDA device keeps it);
+    without a card this raises unless ``device="cpu"`` is given.  ``data``
+    is passed through as given.
     """
     if dtype is None:
         dtype = x0.dtype if isinstance(x0, torch.Tensor) else torch.float64
-    if device is None:
-        device = x0.device if isinstance(x0, torch.Tensor) else torch.device("cpu")
+    device = default_device(device, x0)
     x0 = _as_tensor(x0, dtype, device).reshape(-1)
     nvar = int(x0.shape[0])
 

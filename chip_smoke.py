@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cannoles_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py                  # needs one CUDA card
+    python3 chip_smoke.py --against DIR    # phase 4 and phase 7's times, DIR's package vs this
 
 Phases, in order; a failed phase raises and the script exits nonzero:
 
@@ -26,14 +27,22 @@ Phases, in order; a failed phase raises and the script exits nonzero:
    the same driver with the plain versions on the card, float32 at
    N ∈ {100, 300, 1024, 1100, 1536} and float64 at N ∈ {300, 1024},
    B ∈ {1, 3} (B = 3 adds an indefinite and a tiny-pivot lane), nb ∈ {256,
-   128}: equal ``ok``, finite outputs, L/Linv/d and ``block_cho_solve``'s x
-   within tolerance; times at float32 N = 1024 and float64 N = 1024;
+   128, 512}, and one ill-conditioned input per type (κ = 1e6, N = 1024,
+   nb ∈ {256, 512}): equal ``ok``, finite outputs, L/Linv/d and
+   ``block_cho_solve``'s x within tolerance; times (kernel, plain version,
+   ``torch.linalg.cholesky``, and ``torch.linalg.cholesky`` +
+   ``torch.cholesky_solve``) and bounds at float32 N = 1024 and float64
+   N = 1024, and the wrapper launches and device operations of one
+   factorization there, counted under ``torch.profiler``;
 8. large rung: ``bench.py``'s 8192×1024 problem, float32, Gauss–Newton,
    condensed, ``chol``, ``max_iter=30``, through ``CaNNOLeSSolver.solve()``
-   with the kernels (``pallas_chol_min=0``) and at the default seam;
-   ``first_order`` and max |x − x_true| ≤ 1e-3 on both;
+   with the kernels (``pallas_chol_min=0``) and at the default seam, four
+   solves each and a fifth under ``torch.profiler`` (device busy time and
+   the kernels with the most of it); ``first_order`` and max |x − x_true|
+   ≤ 1e-3 on every solve;
 9. BA scene: ``large_bundle_adjustment(16, 300)`` (n = 996, m = 9,600,
-   p = 7), float32, LM, condensed, ``chol`` at both seams; ``first_order``;
+   p = 7), float32, LM, condensed, ``chol`` at both seams, solved and
+   profiled as phase 8; ``first_order``;
 10. card vs CPU on that scene in float64 with the kernels
    (``pallas_chol_min=0``; float64 at padded N = 1024 takes the blocked
    route, so the block kernel): status and counters equal, solutions within
@@ -45,11 +54,18 @@ counters are set to 0 just before phase 8 and read after phase 10: the
 fused kernel must run in phases 8-9 and the block kernel in phase 10.  The
 last lines are the card's ``nvidia-smi`` line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
+
+``--against DIR`` runs phase 4 and phase 7's times (without the plain
+versions) for the ``cannoles_tpu_torch`` under DIR (for example a ``git
+archive`` of another commit) and for this one, each in a fresh process, in
+the order DIR, this, this, DIR, and prints one JSON line for each.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -131,7 +147,9 @@ def phase_kernel(dev):
         t_k1 = _events_ms(lambda: fl.fused_ldlt_solve(W, rhs, tol))
         t_k2 = _events_ms(lambda: fl.fused_ldlt_solve(W, rhs, tol))
         t_plain2 = _events_ms(lambda: fl.fused_ldlt_solve_reference(W, rhs, tol))
-        times[(N, B)] = (min(t_k1, t_k2), min(t_plain1, t_plain2))
+        # W read, rhs read, x and d written; N³/3 flops for LDLᵀ, 2N² for the solves
+        bound = _bound(4 * B * (N * N + 3 * N), B * (N ** 3 / 3 + 2 * N * N), torch.float32)
+        times[(N, B)] = (min(t_k1, t_k2), min(t_plain1, t_plain2), *bound)
         _log(f"  time f32 N={N} B={B}: kernel {t_k1:.4f}/{t_k2:.4f} ms, "
              f"plain {t_plain1:.4f}/{t_plain2:.4f} ms (CUDA events, mean of 20)")
     return worst, times
@@ -250,19 +268,97 @@ def _rel(got, ref):
     return float((err / scale).max()), float(err.max())
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): memory 3.35 TB/s;
+# float32 67 TFLOP/s outside the tensor cores (their float32 is TF32, which
+# full precision rules out); float64 67 TFLOP/s on the tensor cores (DMMA,
+# IEEE float64).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
+
+
+def _bound(nbytes, flops, dtype):
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _chol_bound(B, N, nb, dtype):
+    """Bound of a blocked Cholesky with the inverses of its diagonal blocks:
+    A's lower triangle read once, L, Linv and d written once; N³/3 flops for
+    the factor and nb³/3 for each block inverse (a multiply-add counts as
+    two)."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = B * item * (N * (N + 1) // 2 + N * N + (N // nb) * nb * nb + N)
+    flops = B * (N ** 3 / 3 + (N // nb) * nb ** 3 / 3)
+    return _bound(nbytes, flops, dtype)
+
+
+def _ill_conditioned(N, seed):
+    """SPD with κ = 1e6: N·Q diag(geomspace(1, 1e-6)) Qᵀ, Q orthogonal."""
+    Q, _ = np.linalg.qr(np.random.default_rng(seed).normal(size=(N, N)))
+    A = (Q * np.geomspace(1.0, 1e-6, N)) @ Q.T * N
+    return 0.5 * (A + A.T)[None]
+
+
 def phase_chol_kernels(dev):
     from cannoles_tpu_torch.ops import block_chol as bc
     from cannoles_tpu_torch.params import Params
 
     # float32 to 1e-4 relative: a block's elimination is the plain version's
-    # operation for operation (--fmad=false), but the panel products and the
-    # substitution sums run in another order than torch.matmul; with
+    # operation for operation (--fmad=false), but across blocks the plain
+    # version forms L21 = A21 Minvᵀ and the trailing update with
+    # torch.matmul, and the kernel by substitution and its own tiles: with
     # κ(A) ≲ 10 for these inputs the factors agree to ~N·eps ≈ 1.8e-4 at
     # worst, 1e-4 holds with margin in practice (measured on an H100:
-    # ≤ 3.1e-7).  float64 to 1e-12 for the same reason (measured ≤ 5.8e-16).
+    # ≤ 2.2e-6).  float64 to 1e-12 for the same reason (measured ≤ 1.9e-15).
+    # The ill-conditioned inputs (κ = 1e6) keep these bars for L and d.  L⁻¹
+    # and x are as sensitive to rounding as κ(L) = 1e3 and κ(A) make them:
+    # L⁻¹ is held at about 10× its worst relative reading on an H100
+    # (3.03e-3 f32, 1.01e-11 f64), and x by its backward error
+    # ‖A x − b‖∞ / (‖A‖∞ ‖x‖∞ + ‖b‖∞) at about 10× its worst reading
+    # (1.49e-8 f32, 4.16e-17 f64).
     bars = {torch.float32: 1e-4, torch.float64: 1e-12}
+    ill_linv = {torch.float32: 3e-2, torch.float64: 1e-10}
+    ill_back = {torch.float32: 1.5e-7, torch.float64: 5e-16}
     worst = {"fused": 0.0, "block": 0.0}
+    worst_ill = {"fused": 0.0, "block": 0.0}  # absolute errors of the κ = 1e6 inputs
     routes = set()
+
+    def check(A, rhs, dtype, tol, N, B, nb, label, want_ok, ill=False):
+        Np = -(-N // nb) * nb
+        route = "fused" if bc.uses_fused(Np, dtype) else "block"
+        l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+        fac = bc.block_cholesky(A, tol, nb)
+        x = bc.block_cho_solve(fac, rhs)
+        torch.cuda.synchronize()
+        grew = (bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1])
+        ref = bc.block_cholesky_reference(A, tol, nb)
+        xr = bc.block_cho_solve(ref, rhs)
+        errs = [_rel(a, b) for a, b in ((fac.L, ref.L), (fac.Linv, ref.Linv), (fac.d, ref.d), (x, xr))]
+        into = worst_ill if ill else worst
+        into[route] = max(into[route], max(e[1] for e in errs))
+        finite = all(bool(torch.isfinite(t).all()) for t in (fac.L, fac.Linv, fac.d, x))
+        bar = bars[dtype]
+        if ill:
+            res = (A.double() @ x.double()[..., None])[..., 0] - rhs.double()
+            back = float((res.abs().amax(-1) / (A.double().abs().sum(-1).amax(-1) * x.double().abs().amax(-1)
+                                                  + rhs.double().abs().amax(-1))).max())
+            good = (errs[0][0] <= bar and errs[1][0] <= ill_linv[dtype] and errs[2][0] <= bar
+                    and back <= ill_back[dtype])
+            extra = f", backward error of x {back:.2e}"
+        else:
+            good = max(e[0] for e in errs) <= bar
+            extra = ""
+        _log(f"  chol {str(dtype)[6:]} N={N} B={B} nb={nb} ({route}{label}): worst rel err "
+             f"L/Linv/d/x {' '.join(f'{e[0]:.2e}' for e in errs)}{extra}, ok {fac.ok.tolist()}")
+        if not (good and finite and fac.ok.tolist() == ref.ok.tolist() == want_ok):
+            raise AssertionError(f"Cholesky kernel disagrees with its plain version at "
+                                 f"{dtype} N={N} B={B} nb={nb}{label}")
+        if grew != ((1, 0) if route == "fused" else (0, Np // nb)):
+            raise AssertionError(f"route {route} launched {grew} (fused, block)")
+        routes.add(route)
+
     for dtype, sizes in ((torch.float32, (100, 300, 1024, 1100, 1536)), (torch.float64, (300, 1024))):
         tol = Params.for_dtype(dtype).eig_tol
         for N in sizes:
@@ -276,45 +372,70 @@ def phase_chol_kernels(dev):
                     A[2, 7, 7] = tol / 100  # positive pivot below tol
                 A = torch.as_tensor(A, dtype=dtype, device=dev)
                 rhs = torch.as_tensor(rng.normal(size=(B, N)), dtype=dtype, device=dev)
-                for nb in (256, 128):
-                    Np = -(-N // nb) * nb
-                    route = "fused" if bc.uses_fused(Np, dtype) else "block"
-                    l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
-                    fac = bc.block_cholesky(A, tol, nb)
-                    x = bc.block_cho_solve(fac, rhs)
-                    torch.cuda.synchronize()
-                    grew = (bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1])
-                    ref = bc.block_cholesky_reference(A, tol, nb)
-                    xr = bc.block_cho_solve(ref, rhs)
-                    errs = [_rel(a, b) for a, b in ((fac.L, ref.L), (fac.Linv, ref.Linv),
-                                                    (fac.d, ref.d), (x, xr))]
-                    rel = max(e[0] for e in errs)
-                    worst[route] = max(worst[route], max(e[1] for e in errs))
-                    finite = all(bool(torch.isfinite(t).all()) for t in (fac.L, fac.Linv, fac.d, x))
-                    same_ok = fac.ok.tolist() == ref.ok.tolist()
-                    want_ok = [True] + [False] * (B - 1)
-                    _log(f"  chol {str(dtype)[6:]} N={N} B={B} nb={nb} ({route}): worst rel err "
-                         f"L/Linv/d/x {' '.join(f'{e[0]:.2e}' for e in errs)}, ok {fac.ok.tolist()}")
-                    if not (rel <= bars[dtype] and finite and same_ok and fac.ok.tolist() == want_ok):
-                        raise AssertionError(f"Cholesky kernel disagrees with its plain version at "
-                                             f"{dtype} N={N} B={B} nb={nb}")
-                    if grew != ((1, 0) if route == "fused" else (0, Np // nb)):
-                        raise AssertionError(f"route {route} launched {grew} (fused, block)")
-                    routes.add(route)
+                for nb in (256, 128, 512):
+                    check(A, rhs, dtype, tol, N, B, nb, "", [True] + [False] * (B - 1))
+        N = 1024
+        A = torch.as_tensor(_ill_conditioned(N, 11), dtype=dtype, device=dev)
+        rhs = torch.as_tensor(np.random.default_rng(12).normal(size=(1, N)), dtype=dtype, device=dev)
+        for nb in (256, 512):
+            check(A, rhs, dtype, tol, N, 1, nb, ", κ=1e6", [True], ill=True)
     if routes != {"fused", "block"}:
         raise AssertionError(f"routes covered: {routes}")
+    return worst, worst_ill
 
-    def rounds(name, kernel, plain, reps_k=10, reps_p=3):
-        p1 = _events_ms(plain, reps_p)
+
+def _launches(fn):
+    """One warm call of fn under ``torch.profiler``: the Cholesky wrappers'
+    launches (fused, block) and the device operations by name (kernels,
+    copies and memsets: every event whose device is the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cannoles_tpu_torch.ops import block_chol as bc
+
+    fn()
+    torch.cuda.synchronize()
+    l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wrappers = (bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1])
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    if not names:
+        raise AssertionError("torch.profiler recorded no device operation")
+    return wrappers, names
+
+
+def chol_times(dev, plain=True):
+    """Phase 7's times, CUDA events: ``block_cholesky`` (factor; factor +
+    ``block_cho_solve``) at float32 (fused route) and float64 (blocked
+    route) N = 1024, nb = 256, B = 1, and ``chol_block`` on one float64
+    nb = 256 block, each against its plain version (unless ``plain`` is
+    false), ``torch.linalg.cholesky`` (+ ``torch.cholesky_solve``) and its
+    bound; and the wrapper launches and device operations of one
+    factorization, counted under ``torch.profiler``."""
+    from cannoles_tpu_torch.ops import block_chol as bc
+    from cannoles_tpu_torch.params import Params
+
+    def rounds(name, kernel, ref=None, reps_k=10, reps_p=3):
+        p1 = _events_ms(ref, reps_p) if ref else None
         k1 = _events_ms(kernel, reps_k)
         k2 = _events_ms(kernel, reps_k)
-        p2 = _events_ms(plain, reps_p)
-        _log(f"  time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-             f"(CUDA events)")
-        return min(k1, k2), min(p1, p2)
+        p2 = _events_ms(ref, reps_p) if ref else None
+        _log(f"  time {name}: {k1:.4f}/{k2:.4f} ms"
+             + (f", plain version {p1:.4f}/{p2:.4f} ms" if ref else "") + " (CUDA events)")
+        return min(k1, k2), (min(p1, p2) if ref else None)
 
-    def torch_chol(A, b):
-        return lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky(A))
+    def launches(name, fn):
+        wrappers, names = _launches(fn)
+        ops = sum(names.values())
+        _log(f"  launches {name}: wrappers (fused, block) {wrappers}, device operations {ops}: "
+             + ", ".join(f"{n} {k[:60]}" for k, n in sorted(names.items(), key=lambda kv: -kv[1])))
+        return dict(wrapper_launches_per_factorization=list(wrappers),
+                    device_launches_per_factorization=ops)
 
     times = {}
     for dtype, key in ((torch.float32, "fused"), (torch.float64, "blocked")):
@@ -323,20 +444,30 @@ def phase_chol_kernels(dev):
         G = rng.normal(size=(1, 1024, 1024))
         A = torch.as_tensor(G @ G.transpose(0, 2, 1) + 1024 * np.eye(1024), dtype=dtype, device=dev)
         b = torch.as_tensor(rng.normal(size=(1, 1024)), dtype=dtype, device=dev)
-        k, p = rounds(f"{str(dtype)[6:]} N=1024 nb=256 ({key} route), factor",
-                      lambda: bc.block_cholesky(A, tol, 256),
-                      lambda: bc.block_cholesky_reference(A, tol, 256))
-        ks, tchol = rounds(f"{str(dtype)[6:]} N=1024 ({key} route), factor + block_cho_solve "
-                           f"(kernel) vs torch.linalg.cholesky + torch.cholesky_solve (plain)",
-                           lambda: bc.block_cho_solve(bc.block_cholesky(A, tol, 256), b),
-                           torch_chol(A, b), reps_p=10)
-        times[key] = dict(ms=k, plain_ms=p, ms_with_solve=ks, torch_cholesky_solve_ms=tchol)
+        name = f"{str(dtype)[6:]} N=1024 nb=256 ({key} route)"
+        k, p = rounds(f"{name}, factor", lambda: bc.block_cholesky(A, tol, 256),
+                      (lambda: bc.block_cholesky_reference(A, tol, 256)) if plain else None)
+        ks, _ = rounds(f"{name}, factor + block_cho_solve",
+                       lambda: bc.block_cho_solve(bc.block_cholesky(A, tol, 256), b))
+        lib_solve, _ = rounds(f"{name}, torch.linalg.cholesky + torch.cholesky_solve",
+                              lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky(A)))
+        lib = min(_events_ms(lambda: torch.linalg.cholesky(A)) for _ in range(2))
+        bound, by = _chol_bound(1, 1024, 256, dtype)
+        _log(f"  time {name}: torch.linalg.cholesky {lib:.4f} ms; bound {bound:.5f} ms ({by})")
+        times[key] = dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=by, library_ms=lib,
+                          library_call="torch.linalg.cholesky (L only)", ms_with_solve=ks,
+                          torch_cholesky_solve_ms=lib_solve,
+                          **launches(name, lambda: bc.block_cholesky(A, tol, 256)))
         if dtype == torch.float64:
             Ab = A[:, :256, :256].contiguous()
-            k, p = rounds("f64 one block nb=256 (block kernel alone)",
-                          lambda: bc.chol_block(Ab, tol), lambda: bc.chol_block_reference(Ab, tol))
-            times["block"] = dict(ms=k, plain_ms=p)
-    return worst, times
+            k, p = rounds("f64 one block nb=256 (block kernel alone)", lambda: bc.chol_block(Ab, tol),
+                          (lambda: bc.chol_block_reference(Ab, tol)) if plain else None)
+            lib = min(_events_ms(lambda: torch.linalg.cholesky(Ab)) for _ in range(2))
+            bound, by = _chol_bound(1, 256, 256, dtype)
+            _log(f"  time f64 nb=256 torch.linalg.cholesky {lib:.4f} ms; bound {bound:.5f} ms ({by})")
+            times["block"] = dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=by, library_ms=lib,
+                                  library_call="torch.linalg.cholesky (L only)")
+    return times
 
 
 def _solve_summary(st):
@@ -345,71 +476,102 @@ def _solve_summary(st):
             f"nbk {ss['nbk']}, msg '{ss['internal_msg']}'")
 
 
-def phase_large_rung(dev):
+def _busy_s(intervals):
+    """Length of the union of [start, end) intervals given in µs, in s."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e6
+
+
+def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
+    """One ``linsolve="chol"`` cell at both seams (``pallas_chol_min=0``: the
+    Cholesky kernels; default: ``torch.linalg.cholesky``): the process's
+    first solve at each seam, ``warm`` more, then one under
+    ``torch.profiler``.  Every solve must end ``first_order`` with max
+    |x − x_true| ≤ ``bar`` and launch the fused kernel at the kernel seam
+    only.  For the profiled solve: the device's busy time (the union of the
+    intervals of the events whose device is the card, each kernel once),
+    its share of the profiled wall and of the median wall, and the five
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from cannoles_tpu_torch import CaNNOLeSSolver
-    from cannoles_tpu_torch.models.families import large_rung_problem
     from cannoles_tpu_torch.ops import block_chol as bc
 
-    dtype = torch.float32
-    pb, x_true, _ = large_rung_problem(dtype=dtype, device=dev)
-    xt = torch.as_tensor(x_true, device=dev)
+    dev = pb.x0.device
+    xt = torch.as_tensor(x_true, device=dev, dtype=torch.float64)
     out = {}
-    # kernel seam first (the cold call of the process), then the default
-    # seam, then both again warm
-    for rep, pcm in ((0, 0), (0, None), (1, 0), (1, None)):
-        s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol",
-                           block_size=256, pallas_chol_min=pcm, dtype=dtype, device=dev)
+
+    def solve(pcm, label):
+        seam = "kernel" if pcm == 0 else "default"
+        s = CaNNOLeSSolver(pb, kkt="condensed", linsolve="chol", pallas_chol_min=pcm,
+                           dtype=torch.float32, device=dev, **solver_kw)
         l0 = bc.FUSED_LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = s.solve(max_iter=30, max_time=600.0)
+        st = s.solve(max_time=600.0, **solve_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        err = float((torch.as_tensor(st.solution, device=dev) - xt).abs().max())
-        seam = "kernel" if pcm == 0 else "default"
         launches = bc.FUSED_LAUNCHES - l0
-        _log(f"  large rung 8192x1024 f32 ({seam} seam, {'cold' if rep == 0 else 'warm'}): "
-             f"{_solve_summary(st)}, wall {wall:.3f} s, max |x - x_true| {err:.3e}, "
-             f"fused kernel launches {launches}, host syncs {s.host_syncs}")
-        if st.status != "first_order" or not err <= 1e-3:
-            raise AssertionError(f"large rung ({seam} seam): {st.status}, error {err}")
+        err = float((torch.as_tensor(st.solution, device=dev, dtype=torch.float64) - xt).abs().max())
+        _log(f"  {name} ({seam} seam, {label}): {_solve_summary(st)}, wall {wall:.3f} s, "
+             f"max |x - x_true| {err:.3e}, fused kernel launches {launches}, host syncs {s.host_syncs}")
+        if st.status != "first_order" or not err <= bar:
+            raise AssertionError(f"{name} ({seam} seam): {st.status}, error {err}")
         if (launches > 0) != (pcm == 0):
-            raise AssertionError(f"large rung ({seam} seam): {launches} fused kernel launches")
-        out.setdefault(seam, dict(iter=st.iter, nfact=st.solver_specific["nfact"],
-                                  nlinsolve=st.solver_specific["nlinsolve"], err=err,
-                                  launches=launches, walls_s=[]))["walls_s"].append(wall)
+            raise AssertionError(f"{name} ({seam} seam): {launches} fused kernel launches")
+        cell = out.setdefault(seam, {})
+        cell.update(iter=st.iter, nfact=st.solver_specific["nfact"],
+                    nlinsolve=st.solver_specific["nlinsolve"], err=err)
+        cell.setdefault("launches", []).append(launches)
+        return wall
+
+    for rep in range(1 + warm):
+        for pcm, seam in ((0, "kernel"), (None, "default")):
+            wall = solve(pcm, "first" if rep == 0 else "warm")
+            out[seam].setdefault("walls_s", []).append(wall)
+    for pcm, seam in ((0, "kernel"), (None, "default")):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = solve(pcm, "profiled")
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not events:
+            raise AssertionError(f"{name} ({seam} seam): torch.profiler recorded no device operation")
+        busy = _busy_s([(e.time_range.start, e.time_range.end) for e in events])
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        med = float(np.median(out[seam]["walls_s"][1:]))
+        _log(f"  {name} ({seam} seam): device busy {busy} s over {len(events)} events in a profiled "
+             f"wall of {wall} s ({busy / wall:.3f} of it, {busy / med:.3f} of the median warm wall {med} s)")
+        for kname, ms in top:
+            _log(f"    {ms:.3f} ms  {kname[:100]}")
+        out[seam].update(profiled_wall_s=wall, device_busy_s=busy, device_events=len(events),
+                         top_kernels_ms={k[:100]: ms for k, ms in top})
     return out
+
+
+def phase_large_rung(dev):
+    from cannoles_tpu_torch.models.families import large_rung_problem
+
+    pb, x_true, _ = large_rung_problem(dtype=torch.float32, device=dev)
+    return _chol_cell("large rung 8192x1024 f32", pb, x_true,
+                      dict(method="gauss_newton", block_size=256), dict(max_iter=30), 1e-3)
 
 
 def phase_ba_large(dev):
-    from cannoles_tpu_torch import CaNNOLeSSolver
     from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment
-    from cannoles_tpu_torch.ops import block_chol as bc
 
-    dtype = torch.float32
-    pb, x_true = large_bundle_adjustment(16, 300, dtype=dtype, device=dev)
-    out = {}
-    for pcm in (0, None):
-        s = CaNNOLeSSolver(pb, method="lm", kkt="condensed", linsolve="chol", pallas_chol_min=pcm,
-                           dtype=dtype, device=dev)
-        l0 = bc.FUSED_LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = s.solve(max_time=600.0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        seam = "kernel" if pcm == 0 else "default"
-        err = float(np.abs(st.solution - x_true).max())
-        launches = bc.FUSED_LAUNCHES - l0
-        _log(f"  BA 16x300 f32 LM ({seam} seam): {_solve_summary(st)}, wall {wall:.3f} s, "
-             f"max |x - x_true| {err:.3e}, fused kernel launches {launches}")
-        if st.status != "first_order":
-            raise AssertionError(f"BA 16x300 f32 ({seam} seam): {st.status}")
-        if (launches > 0) != (pcm == 0):
-            raise AssertionError(f"BA 16x300 ({seam} seam): {launches} fused kernel launches")
-        out[seam] = dict(iter=st.iter, nfact=st.solver_specific["nfact"], wall_s=wall, err=err,
-                         launches=launches)
-    return out
+    pb, x_true = large_bundle_adjustment(16, 300, dtype=torch.float32, device=dev)
+    # no bar on the solution: the scene is held to first_order only
+    return _chol_cell("BA 16x300 f32 LM", pb, x_true, dict(method="lm"), {}, float("inf"))
 
 
 def phase_ba_parity(dev):
@@ -441,10 +603,48 @@ def phase_ba_parity(dev):
     return err
 
 
+def measure(root: str) -> int:
+    """``--measure``: phase 4 and phase 7's times, nothing else, for the
+    package under ``root``; prints one JSON line."""
+    sys.path.insert(0, root)
+    from cannoles_tpu_torch.ops import _native
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _native.load()
+    head = phase_headline(dev)
+    _log(json.dumps({"root": root, "headline": head, "chol": chol_times(dev, plain=False)}))
+    return 0
+
+
+def against(other: str) -> int:
+    """``--against DIR``: ``--measure`` for DIR's package and this one, each in
+    a fresh process, in the order DIR, this, this, DIR, on one card."""
+    here = str(pathlib.Path(__file__).resolve().parent)
+    rc = 0
+    for root in (other, here, here, other):
+        r = subprocess.run([sys.executable, __file__, "--measure", root], capture_output=True,
+                           text=True, timeout=900)
+        _log(r.stdout.strip())
+        if r.returncode:
+            print(r.stderr[-4000:], file=sys.stderr, flush=True)
+            rc = r.returncode
+    return rc
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="compare phase 4's wall and phase 7's times with the package in DIR")
+    ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    if args.measure:
+        return measure(args.measure)
+    if args.against:
+        return against(str(pathlib.Path(args.against).resolve()))
     from cannoles_tpu_torch.ops import _native
     from cannoles_tpu_torch.ops import block_chol as bc
     from cannoles_tpu_torch.ops import fused_ldlt as fl
@@ -478,7 +678,8 @@ def main() -> int:
     phase_parity(dev)
 
     _log("phase 7: Cholesky kernels vs plain versions on the card")
-    chol_worst, chol_times = phase_chol_kernels(dev)
+    chol_worst, chol_worst_ill = phase_chol_kernels(dev)
+    times7 = chol_times(dev)
     bc.FUSED_LAUNCHES = bc.BLOCK_LAUNCHES = 0
     _log("phase 8: large rung (linsolve='chol')")
     large = phase_large_rung(dev)
@@ -491,8 +692,8 @@ def main() -> int:
         raise AssertionError(f"the chol path launched the fused kernel {fused_launches} and the "
                              f"block kernel {block_launches} times")
 
-    kt, kp = times[(5, 16384)]
-    bt, bp = times[(73, 256)]
+    kt, kp, kb, kby = times[(5, 16384)]
+    bt, bp, bb, bby = times[(73, 256)]
     _log(smi)
     _log(json.dumps({"kernels": [{
         "name": "fused_ldlt_solve",
@@ -503,9 +704,14 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": kt,
         "plain_ms": kp,
+        "bound_ms": kb,
+        "bound_by": kby,
+        "library_ms": None,  # torch.linalg.ldl_factor_ex pivots: another function
         "shape": "f32 N=5 B=16384",
         "ms_ba": bt,
         "plain_ms_ba": bp,
+        "bound_ms_ba": bb,
+        "bound_by_ba": bby,
         "shape_ba": "f32 N=73 B=256",
         "headline": head,
         "ba": ba,
@@ -516,7 +722,8 @@ def main() -> int:
         "replaces": "cannoles_tpu/ops/pallas_chol.py:117",
         "launches": fused_launches,
         "max_abs_err": chol_worst["fused"],
-        **chol_times["fused"],
+        "max_abs_err_kappa_1e6": chol_worst_ill["fused"],
+        **times7["fused"],
         "shape": "f32 N=1024 nb=256 B=1 (factor)",
         "large_rung": large,
         "ba_16x300": ba_large,
@@ -527,10 +734,14 @@ def main() -> int:
         "replaces": "cannoles_tpu/ops/pallas_chol.py:56",
         "launches": block_launches,
         "max_abs_err": chol_worst["block"],
-        **chol_times["block"],
+        "max_abs_err_kappa_1e6": chol_worst_ill["block"],
+        **times7["block"],
+        # launches of one factorization on the blocked route (f64 N=1024)
+        "wrapper_launches_per_factorization": times7["blocked"]["wrapper_launches_per_factorization"],
+        "device_launches_per_factorization": times7["blocked"]["device_launches_per_factorization"],
         "shape": "f64 nb=256 B=1 (one block)",
-        "blocked_route": chol_times["blocked"],
-        "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor; 4 block launches + torch.matmul)",
+        "blocked_route": times7["blocked"],
+        "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor: the block kernel + torch.matmul)",
     }]}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

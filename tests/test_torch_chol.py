@@ -145,7 +145,7 @@ def _seam_problems():
         lambda x, d: d["B1"] @ x + 0.05 * torch.tanh(d["B1"] @ x) - d["y"],
         torch.zeros(n, dtype=torch.float64), m, lambda x, d: d["Ac"] @ x - d["bc"],
         np.zeros(ncon), np.zeros(ncon),
-        data={k: torch.as_tensor(v) for k, v in data.items()}, name="chol_seam",
+        data={k: torch.as_tensor(v) for k, v in data.items()}, name="chol_seam", device="cpu",
     )
     return pj, pt, dict(method="gauss_newton")
 
@@ -154,7 +154,7 @@ def _ba_problems():
     """``large_bundle_adjustment(4, 80)``: n = 264, m = 640, p = 7; the
     kernel route pads n to 512 (K = 2)."""
     pj, _ = jba_large(4, 80, dtype=jnp.float64)
-    pt, _ = tba_large(4, 80, dtype=torch.float64)
+    pt, _ = tba_large(4, 80, dtype=torch.float64, device="cpu")
     return pj, _port_problem(pj, pt), dict(method="lm")
 
 
@@ -182,7 +182,7 @@ def _well_conditioned(seed):
     )
     pt = tc.nls_problem(
         lambda x: At @ x - bt + 0.05 * torch.sin(x).sum() * torch.ones(6, dtype=x.dtype),
-        x0, 6, lambda x: (x.sum() - 1.0).reshape(1), [0.0], [0.0],
+        x0, 6, lambda x: (x.sum() - 1.0).reshape(1), [0.0], [0.0], device="cpu",
     )
     return pj, pt
 
@@ -225,7 +225,7 @@ def test_multiplier_refit_and_lm_damping_match_jax(options):
     the refit cuts the iterations (19 against 27 without it), the LM
     damping changes them again (41, max_iter); every counter as in JAX."""
     pj, _ = jba_large(3, 12, dtype=jnp.float64)
-    pt = _port_problem(pj, tba_large(3, 12, dtype=torch.float64)[0])
+    pt = _port_problem(pj, tba_large(3, 12, dtype=torch.float64, device="cpu")[0])
     lam0 = np.r_[300.0 * np.ones(6), -200.0]
     kw = dict(method="lm", kkt="condensed", linsolve="chol", use_initial_multiplier=True)
     a = jc.CaNNOLeSSolver(pj, **kw, **options).solve(lam0=jnp.asarray(lam0), max_iter=40)
@@ -238,7 +238,7 @@ def test_multiplier_refit_and_lm_damping_match_jax(options):
 def _large_rung_pair(m, n):
     """The port's large-rung problem and bench.py's construction in JAX on
     the same numpy draws."""
-    pt, x_true, data = large_rung_problem(m=m, n=n, dtype=torch.float64)
+    pt, x_true, data = large_rung_problem(m=m, n=n, dtype=torch.float64, device="cpu")
     B1, B2 = jnp.asarray(data["B1"]), jnp.asarray(data["B2"])
 
     def model(x):

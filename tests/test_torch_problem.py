@@ -37,7 +37,7 @@ def _bench():
 
 def _ba():
     pj, _ = jba(2, 5, seed=1)
-    pt, _ = tba(2, 5, seed=1)
+    pt, _ = tba(2, 5, seed=1, device="cpu")
     rng = np.random.default_rng(4)
     x = np.asarray(pj.x0) + 0.05 * rng.normal(size=(B, pj.nvar))
     d = {k: np.stack([np.asarray(v)] * B) for k, v in pj.data.items()}
@@ -78,14 +78,50 @@ def test_evaluator_matches_jax(family, fn):
 def test_unconstrained_problem_shapes_and_validation():
     from cannoles_tpu_torch import nls_problem
 
-    pb = nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]), np.zeros(2), 2)
+    pb = nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]), np.zeros(2), 2, device="cpu")
     x = torch.zeros((3, 2), dtype=torch.float64)
     assert pb.c_shifted(x).shape == (3, 0)
     assert pb.Jc(x).shape == (3, 0, 2)
     assert pb.hess_cons(x, x[:, :0]).shape == (3, 2, 2)
     pb.validate_for_solve()
-    bad = nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1], [0.0], [1.0])
+    bad = nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1], [0.0], [1.0], device="cpu")
     with pytest.raises(ValueError, match="inequalities"):
         bad.validate_for_solve()
     with pytest.raises(ValueError, match="lcon"):
-        nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1])
+        nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1], device="cpu")
+
+
+def _builders():
+    from cannoles_tpu_torch import nls_problem
+    from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment
+    from cannoles_tpu_torch.models.families import (
+        bundle_adjustment, bundle_adjustment_batch, large_rung_problem)
+
+    return {
+        "nls_problem": lambda **kw: nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]),
+                                                np.zeros(2), 2, **kw),
+        "large_rung_problem": lambda **kw: large_rung_problem(m=16, n=4, **kw),
+        "bundle_adjustment": lambda **kw: bundle_adjustment(2, 5, **kw),
+        "bundle_adjustment_batch": lambda **kw: bundle_adjustment_batch(2, 2, 5, **kw),
+        "large_bundle_adjustment": lambda **kw: large_bundle_adjustment(2, 6, **kw),
+    }
+
+
+def _x0(built):
+    return (built[0] if isinstance(built, tuple) else built).x0
+
+
+@pytest.mark.parametrize("name", sorted(_builders()))
+def test_entry_point_without_card_raises_naming_cpu(name, monkeypatch):
+    """The port runs on the card by default: with no CUDA device and no
+    device given, each entry point raises and names device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _builders()[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_builders()))
+def test_entry_point_builds_on_cpu_when_asked(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x0 = _x0(_builders()[name](device="cpu"))
+    assert x0.device.type == "cpu" and torch.isfinite(x0).all()

@@ -60,11 +60,11 @@ def make(name):
     x0 = np.asarray(x0, dtype=np.float64)
     m = len(Fj(jnp.asarray(x0)))
     if cj is None:
-        return jc.nls_problem(Fj, jnp.asarray(x0), m), tc.nls_problem(Ft, x0, m)
+        return jc.nls_problem(Fj, jnp.asarray(x0), m), tc.nls_problem(Ft, x0, m, device="cpu")
     p = len(cj(jnp.asarray(x0)))
     return (
         jc.nls_problem(Fj, jnp.asarray(x0), m, cj, np.zeros(p), np.zeros(p)),
-        tc.nls_problem(Ft, x0, m, ct, np.zeros(p), np.zeros(p)),
+        tc.nls_problem(Ft, x0, m, ct, np.zeros(p), np.zeros(p), device="cpu"),
     )
 
 

@@ -86,7 +86,7 @@ def test_vsolve_poisoned_lane_matches_jax():
 
 def test_vsolve_bundle_adjustment_matches_jax():
     pj, x0j, dj, _ = jba_batch(4, 2, 5)
-    pt, x0t, dt, _ = tba_batch(4, 2, 5)
+    pt, x0t, dt, _ = tba_batch(4, 2, 5, device="cpu")
     sj = jc.CaNNOLeSSolver(pj, method="gauss_newton", kkt="condensed", linsolve="pallas")
     st = tc.CaNNOLeSSolver(pt, method="gauss_newton", kkt="condensed", linsolve="pallas")
     assert st.quality_gate and sj.quality_gate  # N = 34 ≥ 16
