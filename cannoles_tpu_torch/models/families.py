@@ -25,10 +25,12 @@ __all__ = [
 ]
 
 
-def lm_bench_family(dtype: torch.dtype, device) -> NLSProblem:
+def lm_bench_family(dtype: torch.dtype, device=None) -> NLSProblem:
     """The bench family (port of ``bench.py:build_problem``): a Rosenbrock
     residual with one linear constraint, data d = (d0, d1, d2):
-    F = (x0 - d0, 10(x1 - x0²) - d1), c = x0 + x1 - d2.  N = n+m+p = 5."""
+    F = (x0 - d0, 10(x1 - x0²) - d1), c = x0 + x1 - d2.  N = n+m+p = 5.
+    ``device`` defaults to the card; ``"cpu"`` builds on the CPU."""
+    device = default_device(device)
 
     def residual(x, d):
         return torch.stack([x[0] - d[0], 10 * (x[1] - x[0] ** 2) - d[1]])

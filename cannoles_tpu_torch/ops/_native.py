@@ -35,11 +35,14 @@ _FLAGS = [
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # source -> {exported function: argtypes}; every function returns an int
-# (cudaGetLastError() after its launches)
+# (cudaGetLastError() after its launches, or a constant of the kernel)
 _SOURCES = {
     "fused_ldlt.cu": {
-        name: [_P, _P, _P, _P, _I, _I, _D, _P]
-        for name in ("cannoles_fused_ldlt_f32", "cannoles_fused_ldlt_f64")
+        **{
+            name: [_P, _P, _P, _P, _I, _I, _D, _I, _P]
+            for name in ("cannoles_fused_ldlt_f32", "cannoles_fused_ldlt_f64")
+        },
+        "cannoles_fused_ldlt_thread_max_n": [],
     },
     "block_chol.cu": {
         name: [_P, _P, _P, _P, _I, _I, _I, _D, _P]

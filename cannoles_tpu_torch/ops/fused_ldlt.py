@@ -2,11 +2,12 @@
 
 Port of ``cannoles_tpu/ops/pallas_ldlt.py``.  The TPU kernel ``_fused_kernel``
 becomes the hand-written CUDA kernel ``csrc/fused_ldlt.cu`` (design note at
-the top of that file).  The public layout is the one of
+the top of that file: one thread per system for small N, one block per
+system above :func:`thread_max_n`).  The public layout is the one of
 ``batched_ldlt_solve_pallas``: W (B, N, N) and rhs (B, N) in, x (B, N) and
-the raw pivots d (B, N) out.  The TPU's lanes-last layout, its 128-lane
-identity padding and its Mosaic compile-time size gates are not carried
-over.
+the raw pivots d (B, N) out.  The kernel keeps the TPU's lanes-last layout
+in shared memory for small N; the 128-lane identity padding and the Mosaic
+compile-time size gates are not carried over.
 
 * :func:`fused_ldlt_solve` is the wrapper the solver calls.  A CPU tensor
   runs :func:`fused_ldlt_solve_reference`; a CUDA tensor launches the kernel
@@ -24,6 +25,7 @@ batched semantics everywhere.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,18 +36,22 @@ __all__ = [
     "fused_ldlt_solve",
     "fused_ldlt_solve_reference",
     "max_n",
+    "thread_max_n",
     "LAUNCHES",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
+_FNS = None  # the bound C functions, see _functions()
 
 _SMEM_BYTES = 232_448  # shared memory a block may use on sm_90 (227 KB)
 
 
+@functools.lru_cache(maxsize=None)
 def max_n(dtype: torch.dtype) -> int:
-    """Largest N the kernel takes: (N² + 2N)·itemsize bytes of shared memory
-    per block must fit in 227 KB (240 in float32, 169 in float64)."""
+    """Largest N the kernel takes: N·(N | 1) + N values of shared memory per
+    block, at most (N² + 2N)·itemsize bytes, must fit in 227 KB (240 in
+    float32, 169 in float64)."""
     # (N² + 2N)·item ≤ S  ⇔  (N + 1)² ≤ S // item + 1
     return math.isqrt(_SMEM_BYTES // (torch.finfo(dtype).bits // 8) + 1) - 1
 
@@ -77,9 +83,37 @@ def fused_ldlt_solve(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float):
     """Solve W x = rhs for B symmetric systems by unpivoted LDLᵀ; returns
     (x, raw pivots d).  CPU tensors take the plain version; CUDA tensors
     launch the kernel, and anything it does not take raises."""
-    global LAUNCHES
     if W.device.type == "cpu" and rhs.device.type == "cpu":
         return fused_ldlt_solve_reference(W, rhs, eig_tol)
+    return _launch(W, rhs, eig_tol, 0)
+
+
+def thread_max_n() -> int:
+    """Largest N the kernel solves with one thread per system; above it, one
+    block per system (the kernel's own constant, read from the library)."""
+    from . import _native
+
+    return _native.load().cannoles_fused_ldlt_thread_max_n()
+
+
+def _functions() -> dict:
+    """The kernel's C functions by dtype, bound on the first call (which
+    builds the library)."""
+    global _FNS
+    if _FNS is None:
+        from . import _native
+
+        lib = _native.load()
+        _FNS = {torch.float32: lib.cannoles_fused_ldlt_f32, torch.float64: lib.cannoles_fused_ldlt_f64}
+    return _FNS
+
+
+def _launch(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float, route: int):
+    """Launch the kernel on CUDA tensors.  ``route`` 0 takes the mapping for
+    N; 32, 64 or 128 force one thread per system with that many systems per
+    block, -1 one block per system (``chip_smoke.py`` measures the threshold
+    with them)."""
+    global LAUNCHES
     if W.device.type != "cuda" or rhs.device != W.device:
         raise ValueError(f"fused_ldlt_solve: W on {W.device}, rhs on {rhs.device}")
     if W.dtype not in (torch.float32, torch.float64) or rhs.dtype != W.dtype:
@@ -97,15 +131,13 @@ def fused_ldlt_solve(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float):
     d = torch.empty_like(rhs)
     if B == 0 or N == 0:
         return x, d
-    from . import _native
-
-    lib = _native.load()
-    fn = lib.cannoles_fused_ldlt_f32 if W.dtype == torch.float32 else lib.cannoles_fused_ldlt_f64
-    with torch.cuda.device(W.device):
-        err = fn(
-            W.data_ptr(), rhs.data_ptr(), x.data_ptr(), d.data_ptr(), B, N, float(eig_tol),
-            torch.cuda.current_stream(W.device).cuda_stream,
-        )
+    fn = _functions()[W.dtype]
+    args = (W.data_ptr(), rhs.data_ptr(), x.data_ptr(), d.data_ptr(), B, N, float(eig_tol), route)
+    if W.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(W.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ldlt_solve: kernel launch failed with CUDA error {err}")
     LAUNCHES += 1

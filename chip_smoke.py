@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (cannoles_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --against DIR    # phase 4 and phase 7's times, DIR's package vs this
+    python3 chip_smoke.py --against DIR    # phases 3, 4 and 7's times, DIR's package vs this
 
 Phases, in order; a failed phase raises and the script exits nonzero:
 
@@ -11,12 +11,19 @@ Phases, in order; a failed phase raises and the script exits nonzero:
 2. build: builds the CUDA kernels from ``cannoles_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the build seconds and ptxas's report;
 3. kernel vs plain: the fused LDLᵀ kernel against its plain PyTorch version
-   on the card, N ∈ {1, 5, 34, 73, cap}, B ∈ {1, 257} (and 16,384 at N = 5),
-   float64 and float32, with lanes whose pivots are skipped; times both
-   with CUDA events at the two main-path shapes;
+   on the card over both of its mappings, N ∈ {1, 5, t, t + 1, 34, 73, 96,
+   97, cap} (t = ``thread_max_n()``), B ∈ {1, 257} (and 16,384 at N = 5),
+   float64 and float32, with lanes whose pivots are skipped: raw pivots bit
+   for bit equal (every forced mapping too at N = 5 and t), x within
+   1e-12/1e-4, inertia equal; the two mappings timed against each other at
+   even N ≤ 16, B = 256 and 16,384, and 32/64/128 systems per block; kernel
+   and plain version timed with CUDA events at the two main-path shapes
+   (and, after phase 5, at the rescue's most frequent shape), and the
+   wrapper's host time per call;
 4. headline rung: the bench family through ``vsolve`` as ``bench.py``
    configures its top rung (float32, LM, full KKT, B = 65,536 in chunks of
-   16,384, max_iter=50, max_eval=48, rescue=True); at least 99% solved;
+   16,384, max_iter=50, max_eval=48, rescue=True); at least 99% solved; the
+   solver's LDLᵀ calls counted by (N, B), the rescue's apart;
 5. BA rung: 256 bundle-adjustment scenes (3 cameras, 16 points), float32,
    Gauss–Newton, condensed KKT (N = 73), max_iter=40; at least 99% solved;
 6. card vs CPU: the bench family in float64 at B = 64, on the card with the
@@ -55,15 +62,18 @@ fused kernel must run in phases 8-9 and the block kernel in phase 10.  The
 last lines are the card's ``nvidia-smi`` line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
 
-``--against DIR`` runs phase 4 and phase 7's times (without the plain
-versions) for the ``cannoles_tpu_torch`` under DIR (for example a ``git
-archive`` of another commit) and for this one, each in a fresh process, in
-the order DIR, this, this, DIR, and prints one JSON line for each.
+``--against DIR`` runs phase 4, then phase 3 and phase 7's times (without
+the plain versions; the LDLᵀ kernel at the two main-path shapes and the
+rescue's, and its host time per call) for the ``cannoles_tpu_torch`` under
+DIR (for example a ``git archive`` of another commit) and for this one,
+each in a fresh process, in the order DIR, this, this, DIR, and prints one
+JSON line for each.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -93,11 +103,17 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi: unavailable"
 
 
-def _events_ms(fn, reps=20):
+def _events_ms(fn, reps=20, ahead=False):
+    """Mean ms of ``reps`` calls of ``fn`` between two CUDA events.  With
+    ``ahead``, a spin kernel (~0.1 ms per call) holds the card first while
+    the host queues the calls, so that a kernel shorter than its wrapper's
+    host time is timed on the device and not at the host's launch rate."""
     for _ in range(min(reps, 3)):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(1_000_000 + 200_000 * reps)
     a.record()
     for _ in range(reps):
         fn()
@@ -110,49 +126,171 @@ def _inertia(d, tol):
     return torch.stack([(d > tol).sum(-1), (d.abs() <= tol).sum(-1), (d < -tol).sum(-1)], -1)
 
 
-def phase_kernel(dev):
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
-    from cannoles_tpu_torch.params import Params
+def _ldlt_inputs(B, N, dtype, dev):
     from cannoles_tpu_torch.utils.testing import quasi_definite
 
-    def inputs(B, N, dtype):
-        W, rhs, _ = quasi_definite(B, N, seed=B + N)
-        return torch.as_tensor(W, dtype=dtype, device=dev), torch.as_tensor(rhs, dtype=dtype, device=dev)
+    W, rhs, _ = quasi_definite(B, N, seed=B + N)
+    return torch.as_tensor(W, dtype=dtype, device=dev), torch.as_tensor(rhs, dtype=dtype, device=dev)
 
+
+def _ldlt_bound(N, B):
+    """Bound of the fused LDLᵀ at float32: W and rhs read, x and d written;
+    N³/3 flops for the factor and 2N² for the solves."""
+    return _bound(4 * B * (N * N + 3 * N), B * (N ** 3 / 3 + 2 * N * N), torch.float32)
+
+
+def phase_kernel(dev):
+    """The fused LDLᵀ kernel against its plain version on both mappings;
+    returns the worst absolute error."""
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+    from cannoles_tpu_torch.params import Params
+
+    t = fl.thread_max_n()
+    _log(f"  one thread per system up to N = {t}, one block per system above")
     worst = 0.0
     for dtype, bar in ((torch.float64, F64_REL), (torch.float32, F32_REL)):
         tol = Params.for_dtype(dtype).eig_tol
-        cap = fl.max_n(dtype)
-        for N in (1, 5, 34, 73, cap):
+        for N in sorted({1, 5, t, t + 1, 34, 73, 96, 97, fl.max_n(dtype)}):
             for B in ((1, 257, 16384) if N == 5 else (1, 257)):
-                W, rhs = inputs(B, N, dtype)
+                W, rhs = _ldlt_inputs(B, N, dtype, dev)
                 x, d = fl.fused_ldlt_solve(W, rhs, tol)
                 torch.cuda.synchronize()
                 xr, dr = fl.fused_ldlt_solve_reference(W, rhs, tol)
                 ex = float((x - xr).abs().max())
                 ed = float((d - dr).abs().max())
                 rx = ex / max(float(xr.abs().max()), 1e-300)
-                rd = ed / max(float(dr.abs().max()), 1e-300)
                 same = bool((_inertia(d, tol) == _inertia(dr, tol)).all())
+                equal = torch.equal(d, dr)
+                # every forced mapping at the headline's N and at the threshold
+                # (128 systems of N = thread_max_n() do not fit in float64)
+                routes = (((32, 64, 128, -1) if N == 5 else (32, 64, -1) if N == t else ())
+                          if B == 257 else ())
+                for route in routes:
+                    equal &= torch.equal(fl._launch(W, rhs, tol, route)[1], dr)
                 worst = max(worst, ex, ed)
-                _log(f"  kernel {str(dtype)[6:]} N={N} B={B}: rel err x {rx:.3e} d {rd:.3e}, "
-                     f"abs {ex:.3e}/{ed:.3e}, inertia equal {same}")
-                if not (rx <= bar and rd <= bar and same and torch.isfinite(x).all()):
+                _log(f"  kernel {str(dtype)[6:]} N={N} B={B}: rel err x {rx:.3e}, d bit-equal "
+                     f"{equal}{' (routes ' + str(routes) + ' too)' if routes else ''}, "
+                     f"inertia equal {same}")
+                if not (rx <= bar and equal and same and torch.isfinite(x).all()):
                     raise AssertionError(f"kernel disagrees with plain version at {dtype} N={N} B={B}")
-    times = {}
-    for N, B in ((5, 16384), (73, 256)):
-        W, rhs = inputs(B, N, torch.float32)
-        tol = Params.for_dtype(torch.float32).eig_tol
-        t_plain1 = _events_ms(lambda: fl.fused_ldlt_solve_reference(W, rhs, tol))
-        t_k1 = _events_ms(lambda: fl.fused_ldlt_solve(W, rhs, tol))
-        t_k2 = _events_ms(lambda: fl.fused_ldlt_solve(W, rhs, tol))
-        t_plain2 = _events_ms(lambda: fl.fused_ldlt_solve_reference(W, rhs, tol))
-        # W read, rhs read, x and d written; N³/3 flops for LDLᵀ, 2N² for the solves
-        bound = _bound(4 * B * (N * N + 3 * N), B * (N ** 3 / 3 + 2 * N * N), torch.float32)
-        times[(N, B)] = (min(t_k1, t_k2), min(t_plain1, t_plain2), *bound)
-        _log(f"  time f32 N={N} B={B}: kernel {t_k1:.4f}/{t_k2:.4f} ms, "
-             f"plain {t_plain1:.4f}/{t_plain2:.4f} ms (CUDA events, mean of 20)")
-    return worst, times
+    return worst
+
+
+def threshold_sweep(dev):
+    """Times (CUDA events) of the two mappings forced at every even N up to
+    16, B = 256 and 16,384, both types (diagonally dominant inputs),
+    and of 32, 64 and 128 systems per block at N = 5, B = 16,384; returns
+    the largest N where one thread per system is not slower, per type and B."""
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+    from cannoles_tpu_torch.params import Params
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tol = Params.for_dtype(dtype).eig_tol
+        for B in (256, 16384):
+            wins = 0
+            for N in (2, 4, 6, 8, 10, 12, 14, 16):
+                G = torch.randn(B, N, N, generator=g, device=dev, dtype=dtype)
+                W = G + G.transpose(1, 2) + 2 * N * torch.eye(N, device=dev, dtype=dtype)
+                rhs = torch.randn(B, N, generator=g, device=dev, dtype=dtype)
+                ms = [_events_ms(lambda r=r: fl._launch(W, rhs, tol, r), ahead=True)
+                      for r in (32, -1, 32, -1)]
+                thread, block = min(ms[0], ms[2]), min(ms[1], ms[3])
+                _log(f"  sweep {str(dtype)[6:]} B={B} N={N}: thread per system {ms[0]:.4f}/{ms[2]:.4f} ms, "
+                     f"block per system {ms[1]:.4f}/{ms[3]:.4f} ms")
+                if thread <= block:
+                    wins = N
+            out[f"{str(dtype)[6:]} B={B}"] = wins
+    W, rhs = _ldlt_inputs(16384, 5, torch.float32, dev)
+    tol = Params.for_dtype(torch.float32).eig_tol
+    per_block = {r: min(_events_ms(lambda r=r: fl._launch(W, rhs, tol, r), ahead=True) for _ in range(2))
+                 for r in (32, 64, 128)}
+    _log(f"  systems per block at f32 N=5 B=16384: "
+         + ", ".join(f"{r}: {ms:.4f} ms" for r, ms in per_block.items()))
+    return dict(thread_not_slower_up_to_n=out,
+                systems_per_block_ms={str(r): ms for r, ms in per_block.items()})
+
+
+def ldlt_times(dev, shapes, plain=True):
+    """CUDA-event times of the fused LDLᵀ kernel at float32 at each (N, B),
+    against its plain version (unless ``plain`` is false), and its bound."""
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+    from cannoles_tpu_torch.params import Params
+
+    tol = Params.for_dtype(torch.float32).eig_tol
+    out = {}
+    for N, B in shapes:
+        W, rhs = _ldlt_inputs(B, N, torch.float32, dev)
+        p1 = _events_ms(lambda: fl.fused_ldlt_solve_reference(W, rhs, tol)) if plain else None
+        k1 = _events_ms(lambda: fl.fused_ldlt_solve(W, rhs, tol), ahead=True)
+        k2 = _events_ms(lambda: fl.fused_ldlt_solve(W, rhs, tol), ahead=True)
+        p2 = _events_ms(lambda: fl.fused_ldlt_solve_reference(W, rhs, tol)) if plain else None
+        bound, by = _ldlt_bound(N, B)
+        out[f"N={N} B={B}"] = dict(ms=min(k1, k2), plain_ms=min(p1, p2) if plain else None,
+                                   bound_ms=bound, bound_by=by)
+        _log(f"  time f32 N={N} B={B}: kernel {k1:.4f}/{k2:.4f} ms"
+             + (f", plain {p1:.4f}/{p2:.4f} ms" if plain else "")
+             + f"; bound {bound:.5f} ms ({by}) (CUDA events, mean of 20)")
+    return out
+
+
+def ldlt_host_us(dev, N=5, B=256, calls=1000, loops=5):
+    """Host microseconds per call of ``fused_ldlt_solve`` (float32): the
+    least of ``loops`` loops of ``calls`` calls with no synchronisation."""
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+    from cannoles_tpu_torch.params import Params
+
+    tol = Params.for_dtype(torch.float32).eig_tol
+    W, rhs = _ldlt_inputs(B, N, torch.float32, dev)
+    per_loop = []
+    for _ in range(loops):
+        fl.fused_ldlt_solve(W, rhs, tol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fl.fused_ldlt_solve(W, rhs, tol)
+        per_loop.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    _log(f"  host time of fused_ldlt_solve f32 N={N} B={B}: "
+         + ", ".join(f"{us:.3f}" for us in per_loop) + f" us per call ({loops} loops of {calls} calls, no sync)")
+    return min(per_loop)
+
+
+@contextlib.contextmanager
+def _ldlt_shapes():
+    """Counts the solver's fused LDLᵀ calls by (N, B), the calls inside the
+    rescue pass apart, by wrapping ``core.solver.fused_ldlt_solve`` and
+    ``parallel.batch._rescue_unsolved`` for the time of the block."""
+    from cannoles_tpu_torch.core import solver as sv
+    from cannoles_tpu_torch.parallel import batch as bt
+
+    counts = {"main": {}, "rescue": {}}
+    where = ["main"]
+    fused, rescue = sv.fused_ldlt_solve, bt._rescue_unsolved
+
+    def counted(W, rhs, tol):
+        c = counts[where[0]]
+        key = (W.shape[-1], W.shape[0])
+        c[key] = c.get(key, 0) + 1
+        return fused(W, rhs, tol)
+
+    def in_rescue(*a, **k):
+        where[0] = "rescue"
+        try:
+            return rescue(*a, **k)
+        finally:
+            where[0] = "main"
+
+    sv.fused_ldlt_solve, bt._rescue_unsolved = counted, in_rescue
+    try:
+        yield counts
+    finally:
+        sv.fused_ldlt_solve, bt._rescue_unsolved = fused, rescue
+
+
+def _by_shape(counts):
+    return {k: {f"N={N} B={B}": n for (N, B), n in sorted(v.items())} for k, v in counts.items()}
 
 
 def phase_headline(dev):
@@ -182,11 +320,14 @@ def phase_headline(dev):
         breakdown[key] = breakdown.get(key, 0) + 1
 
     l0, h0 = fl.LAUNCHES, solver.host_syncs
-    t0 = time.perf_counter()
-    res = vsolve(pb, x0s, rescue=True, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _ldlt_shapes() as shapes:
+        t0 = time.perf_counter()
+        res = vsolve(pb, x0s, rescue=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = fl.LAUNCHES - l0
+    # the (N, B) the rescue pass launches most often
+    rescue_shape = max(shapes["rescue"].items(), key=lambda kv: kv[1])[0] if shapes["rescue"] else None
     syncs = solver.host_syncs - h0 + sum(
         s.host_syncs for s in solver.__dict__.get("_rescue_siblings", {}).values()
     )
@@ -194,6 +335,7 @@ def phase_headline(dev):
     _log(f"  headline: solved {summ['solved']}/{B}, wall {wall:.3f} s (rescue included), "
          f"kernel launches {launches}, host syncs {syncs} (pre-rescue pass alone {pre_syncs}), "
          f"pre-rescue failures {breakdown or 'none'}, mean_iter {summ['mean_iter']:.3f}")
+    _log(f"  headline LDLT calls by shape: {_by_shape(shapes)}")
     if launches <= 0:
         raise AssertionError("headline rung did not launch the fused LDLT kernel")
     x = res.states.x
@@ -202,7 +344,7 @@ def phase_headline(dev):
     if summ["solved"] < 0.99 * B:
         raise AssertionError(f"headline rung solved {summ['solved']}/{B} < 99%")
     return dict(solved=summ["solved"], B=B, wall_s=wall, launches=launches, host_syncs=syncs,
-                pre_rescue=breakdown)
+                pre_rescue=breakdown, ldlt_calls=_by_shape(shapes), rescue_shape=rescue_shape)
 
 
 def phase_ba(dev):
@@ -216,23 +358,25 @@ def phase_ba(dev):
     solver = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="pallas",
                             dtype=dtype, device=dev)
     l0 = fl.LAUNCHES
-    t0 = time.perf_counter()
-    res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=40)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _ldlt_shapes() as shapes:
+        t0 = time.perf_counter()
+        res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=40)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = fl.LAUNCHES - l0
     summ = res.summary()
     ok = res.solved_mask()
     err = float(np.abs(res.solution[ok] - x_true[ok]).max()) if ok.any() else float("nan")
     _log(f"  BA: N={pb.nvar + pb.ncon}, solved {summ['solved']}/{B}, wall {wall:.3f} s, "
          f"kernel launches {launches}, host syncs {solver.host_syncs}, "
-         f"max |x - x_true| on solved lanes {err:.3e}, mean_iter {summ['mean_iter']:.3f}")
+         f"max |x - x_true| on solved lanes {err:.3e}, mean_iter {summ['mean_iter']:.3f}, "
+         f"LDLT calls by shape {_by_shape(shapes)}")
     if launches <= 0:
         raise AssertionError("BA rung did not launch the fused LDLT kernel")
     if summ["solved"] < 0.99 * B:
         raise AssertionError(f"BA rung solved {summ['solved']}/{B} < 99%")
     return dict(solved=summ["solved"], B=B, wall_s=wall, launches=launches,
-                host_syncs=solver.host_syncs)
+                host_syncs=solver.host_syncs, ldlt_calls=_by_shape(shapes))
 
 
 def phase_parity(dev):
@@ -604,8 +748,8 @@ def phase_ba_parity(dev):
 
 
 def measure(root: str) -> int:
-    """``--measure``: phase 4 and phase 7's times, nothing else, for the
-    package under ``root``; prints one JSON line."""
+    """``--measure``: phase 4, then phase 3 and phase 7's times, nothing
+    else, for the package under ``root``; prints one JSON line."""
     sys.path.insert(0, root)
     from cannoles_tpu_torch.ops import _native
 
@@ -613,7 +757,10 @@ def measure(root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _native.load()
     head = phase_headline(dev)
-    _log(json.dumps({"root": root, "headline": head, "chol": chol_times(dev, plain=False)}))
+    shapes = [(5, 16384), (73, 256)] + ([tuple(head["rescue_shape"])] if head["rescue_shape"] else [])
+    ldlt = ldlt_times(dev, shapes, plain=False)
+    ldlt["host_us_per_call N=5 B=256"] = ldlt_host_us(dev)
+    _log(json.dumps({"root": root, "headline": head, "ldlt": ldlt, "chol": chol_times(dev, plain=False)}))
     return 0
 
 
@@ -635,7 +782,7 @@ def against(other: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="compare phase 4's wall and phase 7's times with the package in DIR")
+                    help="compare phase 4's wall and phases 3 and 7's times with the package in DIR")
     ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -667,13 +814,19 @@ def main() -> int:
                 _log(f"    {line}")
 
     _log("phase 3: kernel vs plain version on the card")
-    worst, times = phase_kernel(dev)
+    worst = phase_kernel(dev)
+    sweep = threshold_sweep(dev)
+    times = ldlt_times(dev, [(5, 16384), (73, 256)])
     fl.LAUNCHES = 0
     _log("phase 4: headline rung")
     head = phase_headline(dev)
     _log("phase 5: BA rung")
     ba = phase_ba(dev)
     launches = fl.LAUNCHES
+    _log("  phase 3's kernel at the rescue's most frequent shape, and its host cost per call")
+    rescue = tuple(head["rescue_shape"] or (5, 48))
+    times.update(ldlt_times(dev, [rescue]))
+    host_us = ldlt_host_us(dev)
     _log("phase 6: solver on the card vs on the CPU")
     phase_parity(dev)
 
@@ -692,8 +845,7 @@ def main() -> int:
         raise AssertionError(f"the chol path launched the fused kernel {fused_launches} and the "
                              f"block kernel {block_launches} times")
 
-    kt, kp, kb, kby = times[(5, 16384)]
-    bt, bp, bb, bby = times[(73, 256)]
+    head_t, ba_t, rescue_t = (times[f"N={N} B={B}"] for N, B in ((5, 16384), (73, 256), rescue))
     _log(smi)
     _log(json.dumps({"kernels": [{
         "name": "fused_ldlt_solve",
@@ -702,17 +854,16 @@ def main() -> int:
         "replaces": "cannoles_tpu/ops/pallas_ldlt.py:79",
         "launches": launches,
         "max_abs_err": worst,
-        "ms": kt,
-        "plain_ms": kp,
-        "bound_ms": kb,
-        "bound_by": kby,
+        **head_t,
         "library_ms": None,  # torch.linalg.ldl_factor_ex pivots: another function
         "shape": "f32 N=5 B=16384",
-        "ms_ba": bt,
-        "plain_ms_ba": bp,
-        "bound_ms_ba": bb,
-        "bound_by_ba": bby,
+        **{f"{k}_ba": v for k, v in ba_t.items()},
         "shape_ba": "f32 N=73 B=256",
+        **{f"{k}_rescue": v for k, v in rescue_t.items()},
+        "shape_rescue": f"f32 N={rescue[0]} B={rescue[1]}",
+        "thread_max_n": fl.thread_max_n(),
+        "threshold_sweep": sweep,
+        "host_us_per_call": host_us,
         "headline": head,
         "ba": ba,
     }, {

@@ -33,6 +33,15 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _fused_shapes(dt):
+    """(N, B) over both mappings: one thread per system up to
+    ``thread_max_n()``, one block per system above it (its 8 x 8 team up to
+    N = 96, 16 x 16 above), up to the cap."""
+    t = tfused.thread_max_n()
+    return [(1, 3), (5, 257), (t, 257), (t + 1, 257), (34, 3), (73, 257), (96, 3), (97, 3),
+            (tfused.max_n(dt), 3)]
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_fused_kernel_matches_plain_on_card(cuda, dtype):
     # float64 to 1e-12 relative; float32 to 1e-4: the elimination is the
@@ -41,7 +50,7 @@ def test_fused_kernel_matches_plain_on_card(cuda, dtype):
     dt = getattr(torch, dtype)
     tol = float(torch.finfo(dt).eps)
     rel = 1e-12 if dt == torch.float64 else 1e-4
-    for N, B in [(1, 3), (5, 257), (73, 257), (tfused.max_n(dt), 3)]:
+    for N, B in _fused_shapes(dt):
         W, rhs, n1 = quasi_definite(B, N, seed=N)
         Wc = torch.as_tensor(W, dtype=dt, device=cuda)
         rc = torch.as_tensor(rhs, dtype=dt, device=cuda)
@@ -53,6 +62,30 @@ def test_fused_kernel_matches_plain_on_card(cuda, dtype):
         assert float((d - dr).abs().max()) <= rel * float(dr.abs().max())
         assert float((x - xr).abs().max()) <= rel * float(xr.abs().max())
         assert torch.equal(d > tol, dr > tol) and torch.equal(d.abs() <= tol, dr.abs() <= tol)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fused_kernel_bit_equal_to_plain_on_card(cuda, dtype):
+    """The raw pivots d are the plain version's bit for bit on both
+    mappings, on both sides of the threshold, at the cap and at B not a
+    multiple of a block's systems; every forced route too (the upper
+    triangle, updates in ascending k, --fmad=false)."""
+    dt = getattr(torch, dtype)
+    tol = float(torch.finfo(dt).eps)
+    t = tfused.thread_max_n()
+    for N in sorted({N for N, _ in _fused_shapes(dt)}):
+        for B in (1, 3, 257):
+            W, rhs, _ = quasi_definite(B, N, seed=N + B)
+            Wc = torch.as_tensor(W, dtype=dt, device=cuda)
+            rc = torch.as_tensor(rhs, dtype=dt, device=cuda)
+            _, dr = tfused.fused_ldlt_solve_reference(Wc, rc, tol)
+            # every forced route at N = 5, and those whose shared memory
+            # holds N = thread_max_n() in float64 too (128 systems do not)
+            routes = [0] + ([32, 64, 128, -1] if N == 5 else [32, 64, -1] if N == t else [])
+            for route in routes:
+                _, d = tfused._launch(Wc, rc, tol, route)
+                torch.cuda.synchronize()
+                assert torch.equal(d, dr), (N, B, route)
 
 
 def test_fused_kernel_rejects_what_it_does_not_take(cuda):
@@ -188,6 +221,7 @@ def test_problem_defaults_to_the_card(cuda):
 
     pb = nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]), np.zeros(2), 2)
     assert pb.x0.device.type == "cuda"
+    assert lm_bench_family(torch.float64).x0.device.type == "cuda"
     pb_cpu = nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]), np.zeros(2), 2, device="cpu")
     assert pb_cpu.x0.device.type == "cpu"
 

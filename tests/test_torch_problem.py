@@ -95,7 +95,7 @@ def _builders():
     from cannoles_tpu_torch import nls_problem
     from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment
     from cannoles_tpu_torch.models.families import (
-        bundle_adjustment, bundle_adjustment_batch, large_rung_problem)
+        bundle_adjustment, bundle_adjustment_batch, large_rung_problem, lm_bench_family)
 
     return {
         "nls_problem": lambda **kw: nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]),
@@ -104,6 +104,7 @@ def _builders():
         "bundle_adjustment": lambda **kw: bundle_adjustment(2, 5, **kw),
         "bundle_adjustment_batch": lambda **kw: bundle_adjustment_batch(2, 2, 5, **kw),
         "large_bundle_adjustment": lambda **kw: large_bundle_adjustment(2, 6, **kw),
+        "lm_bench_family": lambda **kw: lm_bench_family(torch.float64, **kw),
     }
 
 
