@@ -32,6 +32,7 @@ from .core.solver import CaNNOLeSSolver, RunConfig, SolverState, cannoles
 from .core.status import ExecutionStats, Status, status_name
 from .params import Params
 from .parallel.batch import BatchResult, vsolve
+from .parallel.multistart import multistart
 from .problem import NLSProblem, nls_problem
 
 __version__ = "0.1.0"
@@ -41,6 +42,7 @@ __all__ = [
     "cannoles",
     "CaNNOLeSSolver",
     "vsolve",
+    "multistart",
     "Status",
     "ExecutionStats",
     "status_name",

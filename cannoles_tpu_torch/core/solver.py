@@ -203,6 +203,10 @@ class _Rho(NamedTuple):
     nfact: torch.Tensor
 
 
+class _BudgetSpent(Exception):
+    """``solve()``'s wall-clock budget ran out at a host sync."""
+
+
 class CaNNOLeSSolver:
     """Solver for one problem structure (CaNNOLeSSolver analog): build once,
     solve many batches with different starts, data and tolerances.
@@ -292,10 +296,47 @@ class CaNNOLeSSolver:
         self.last_state: Optional[SolverState] = None
         # host syncs (mask.any() reads) since construction
         self.host_syncs = 0
+        # solve()'s wall-clock deadline (time.time()), read at every host sync
+        self._deadline: Optional[float] = None
 
     def _any(self, mask) -> bool:
         self.host_syncs += 1
-        return bool(mask.any())
+        hit = bool(mask.any())
+        if self._deadline is not None and time.time() > self._deadline:
+            raise _BudgetSpent
+        return hit
+
+    def reset(self, problem: Optional[NLSProblem] = None) -> "CaNNOLeSSolver":
+        """Re-solve support (the reference's SolverCore.reset!): with no
+        argument a no-op (re-solving from a new x0 needs no reset); with a
+        problem of identical dimensions, a solver with the same options,
+        dtype and device wired to the new problem."""
+        if problem is None:
+            return self
+        if (problem.nvar, problem.nequ, problem.ncon) != (
+            self.problem.nvar,
+            self.problem.nequ,
+            self.problem.ncon,
+        ):
+            raise ValueError("reset requires a problem with identical dimensions")
+        return CaNNOLeSSolver(
+            problem,
+            method=self.method,
+            linsolve=self.linsolve,
+            use_initial_multiplier=self.use_initial_multiplier,
+            always_accept_extrapolation=self.always_accept_extrapolation,
+            lm_damping=self.lm_damping,
+            multiplier_refit=self.multiplier_refit,
+            block_size=self.block_size,
+            kkt=self.kkt,
+            params=self.params,
+            quality_gate=self.quality_gate,
+            robust_fallback=self.robust_fallback,
+            descent_rescue=self.descent_rescue,
+            pallas_chol_min=self.pallas_chol_min,
+            dtype=self.dtype,
+            device=self.device,
+        )
 
     # ------------------------------------------------------------------
     # pieces
@@ -968,9 +1009,16 @@ class CaNNOLeSSolver:
         **numeric,
     ) -> ExecutionStats:
         """Host-driven solve of one instance (B = 1): one outer step per host
-        iteration, with the wall-clock limit, callback and log rows between
-        them.  ``callback(problem, state, stats)``; set
-        ``stats.status = 'user'`` to stop."""
+        iteration, with the callback and log rows between them.
+        ``callback(problem, state, stats)``; set ``stats.status = 'user'``
+        to stop.
+
+        ``max_time`` is read between outer steps, as in the JAX package, and
+        after the first outer step also at every host sync inside one: an
+        outer step of the port can take thousands of host trips (an inner
+        loop up to ``max_inner`` iterations), where the JAX package runs it
+        as one compiled call.  A step that the budget interrupts is dropped,
+        and the last outer iterate is returned with status ``max_time``."""
         if resume_from is not None:
             raise NotImplementedError("resume_from is not ported yet: ROADMAP queue 1 item 9")
         pb = self.problem
@@ -994,17 +1042,26 @@ class CaNNOLeSSolver:
             callback(pb, state, stats)
         done = stats.status != "unknown"
 
-        while not done:
-            state = self._outer_step(state, cfg, state.status == Status.UNKNOWN)
-            elapsed = time.time() - t0
-            self._sync_stats(state, stats, elapsed)
-            if stats.status == "unknown" and elapsed > max_time:
-                stats.status = status_name(Status.MAX_TIME)
-            if verbose > 0 and stats.iter % max(verbose, 1) == 0:
-                self._log_row(state, stats)
-            if callback is not None:
-                callback(pb, state, stats)
-            done = stats.status != "unknown"
+        try:
+            while not done:
+                try:
+                    state = self._outer_step(state, cfg, state.status == Status.UNKNOWN)
+                except _BudgetSpent:
+                    stats.status = status_name(Status.MAX_TIME)
+                    stats.elapsed_time = time.time() - t0
+                    break
+                elapsed = time.time() - t0
+                self._sync_stats(state, stats, elapsed)
+                if stats.status == "unknown" and elapsed > max_time:
+                    stats.status = status_name(Status.MAX_TIME)
+                if verbose > 0 and stats.iter % max(verbose, 1) == 0:
+                    self._log_row(state, stats)
+                if callback is not None:
+                    callback(pb, state, stats)
+                done = stats.status != "unknown"
+                self._deadline = t0 + max_time
+        finally:
+            self._deadline = None
 
         self._finalize_stats(state, stats)
         self.last_state = state

@@ -1,7 +1,8 @@
 """Problem families of the port's paths.
 
-Port of ``cannoles_tpu/models/families.py`` (``bundle_adjustment`` and
-``bundle_adjustment_batch``) plus two problems of ``bench.py``: the bench
+Port of ``cannoles_tpu/models/families.py`` (``curve_fit_family``,
+``bundle_adjustment`` and ``bundle_adjustment_batch``) plus two problems
+of ``bench.py``: the bench
 family with its batch draw, and the large rung's dense problem.
 Observations, starts and gauge constants come from the same numpy code and
 seeds as in the JAX package, so both packages get identical data.
@@ -17,12 +18,33 @@ import torch
 from ..problem import NLSProblem, default_device, nls_problem
 
 __all__ = [
+    "curve_fit_family",
     "bundle_adjustment",
     "bundle_adjustment_batch",
     "lm_bench_family",
     "lm_bench_batch",
     "large_rung_problem",
 ]
+
+
+def curve_fit_family(m: int = 1024, dtype: torch.dtype = torch.float32, device=None) -> NLSProblem:
+    """y(t) = a1·exp(-b1 t) + a2·exp(-b2 t) + c: 5 parameters, m rows.
+
+    ``data = {"t": (m,), "y": (m,)}``; build batches by stacking data
+    leaves.  ``device`` defaults to the card; ``"cpu"`` builds on the CPU."""
+    device = default_device(device)
+    t = torch.as_tensor(np.linspace(0.0, 4.0, m), dtype=dtype, device=device)
+
+    def model(x, t):
+        return x[0] * torch.exp(-x[1] * t) + x[2] * torch.exp(-x[3] * t) + x[4]
+
+    def residual(x, d):
+        return model(x, d["t"]) - d["y"]
+
+    true = torch.tensor([2.0, 1.5, 1.0, 0.4, 0.5], dtype=dtype, device=device)
+    data = {"t": t, "y": model(true, t)}
+    x0 = torch.tensor([1.0, 1.0, 0.5, 0.1, 0.0], dtype=dtype, device=device)
+    return nls_problem(residual, x0, m, data=data, name=f"curvefit_{m}", device=device)
 
 
 def lm_bench_family(dtype: torch.dtype, device=None) -> NLSProblem:

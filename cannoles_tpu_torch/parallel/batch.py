@@ -2,16 +2,18 @@
 
 Port of ``cannoles_tpu/parallel/batch.py``.  The batch runs through the
 batch-native solver (``CaNNOLeSSolver.run``), in sequential chunks when
-``chunk_size`` asks for them.  A diverging lane cannot stall or kill the
-batch: every lane carries its own status.
+``chunk_size`` asks for them, or chunk by chunk against a wall-clock
+budget (``max_time``).  A diverging lane cannot stall or kill the batch:
+every lane carries its own status.
 
-Not in this slice: ``mesh=`` (ROADMAP queue 1 item 15) and ``max_time=``
-(queue 1 item 7) raise ``NotImplementedError``.
+Not in this slice: ``mesh=`` (ROADMAP queue 1 item 15) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, Dict, Optional
 
@@ -129,18 +131,26 @@ def vsolve(
     or 'ldlt').  ``chunk_size``: run the batch in
     sequential chunks of this many lanes (it must divide B).
 
+    ``max_time``: wall-clock budget in seconds, checked between chunks
+    (``chunk_size`` lanes each, default ``min(B, 1024)``, the last chunk
+    may be shorter): after each chunk the card is synchronized and the
+    clock read, and once the budget is spent the lanes of the chunks not
+    dispatched are initialized in one batch and stamped ``max_time``
+    (unless the initialization already ended them).  Accuracy is ± one
+    chunk's solve time.
+
     ``rescue``: re-solve the unsolved lanes from their original starts and
     merge them back: stage 0 re-runs budget-limited lanes (stalled,
     max_iter, max_eval) on the same solver, stage 1 re-runs the rest with
     the backward-error gate forced on (skipped when the solver already runs
     gated), stage 2 sends what is still unsolved to the exact-inertia
     ``eigh`` backend.  Every rescue pass lifts the eval and inner budgets
-    to the reference's (max_eval=100000, max_inner=10000).
+    to the reference's (max_eval=100000, max_inner=10000).  Under
+    ``max_time`` the rescue runs only while budget remains, and only on
+    lanes that were dispatched.
     """
     if mesh is not None:
         raise NotImplementedError("vsolve(mesh=...) is not ported yet: ROADMAP queue 1 item 15")
-    if max_time is not None:
-        raise NotImplementedError("vsolve(max_time=...) is not ported yet: ROADMAP queue 1 item 7")
     problem.validate_for_solve()
     if solver is None:
         method_r = _check_available_method(method)
@@ -166,6 +176,18 @@ def vsolve(
     lam0_batch = torch.as_tensor(lam0_batch).to(dtype=dt, device=dev)
     data_batch = tree_to_torch(data_batch, device=dev, dtype=dt)
     cfg = solver.make_config(max_iter=max_iter, **numeric)
+
+    if max_time is not None:
+        result, remaining = _vsolve_deadline(
+            solver, x0_batch, lam0_batch, data_batch, cfg, chunk_size, max_time
+        )
+        if rescue and remaining > 0:
+            # lanes stamped max_time were never run: the budget spoke for them
+            result = _rescue_unsolved(
+                solver, result, x0_batch, lam0_batch, data_batch, cfg,
+                skip_stage1=solver.quality_gate, eligible=result.status != Status.MAX_TIME,
+            )
+        return result
 
     use_chunks = chunk_size is not None and B % chunk_size == 0 and B > chunk_size
     if chunk_size is not None and not use_chunks and chunk_size != B:
@@ -193,7 +215,9 @@ def vsolve(
     return result
 
 
-def _rescue_unsolved(solver, result, x0_batch, lam0_batch, data_batch, cfg, skip_stage1=False):
+def _rescue_unsolved(
+    solver, result, x0_batch, lam0_batch, data_batch, cfg, skip_stage1=False, eligible=None
+):
     """Three-stage re-solve of the unsolved lanes, merged back in place.
 
     Stage 0: budget-limited lanes (stalled / max_iter / max_eval) on the
@@ -201,7 +225,9 @@ def _rescue_unsolved(solver, result, x0_batch, lam0_batch, data_batch, cfg, skip
     same backend with the backward-error gate forced on (skipped when the
     solver already runs gated).  Stage 2: the exact-inertia ``eigh``
     backend.  The eval/inner budgets are lifted to the reference's in every
-    stage.  The siblings are cached on the primary solver.  The JAX package
+    stage.  ``eligible``: an optional boolean lane mask restricting which
+    unsolved lanes may be rescued (deadline dispatch excludes lanes never
+    run).  The siblings are cached on the primary solver.  The JAX package
     pads each subset to a power of two to bound its compiled shapes; here
     the subset runs at its own size, and the merge is an ``index_copy``
     into the full state."""
@@ -213,6 +239,8 @@ def _rescue_unsolved(solver, result, x0_batch, lam0_batch, data_batch, cfg, skip
 
     def _pass(res, sibling, only=None):
         bad = ~res.solved_mask()
+        if eligible is not None:
+            bad &= eligible
         if only is not None:
             bad &= only
         idx_np = np.nonzero(bad)[0]
@@ -268,3 +296,36 @@ def _rescue_unsolved(solver, result, x0_batch, lam0_batch, data_batch, cfg, skip
     if (~result.solved_mask()).any():
         result = _pass(result, _sibling("eigh"))
     return result
+
+
+def _vsolve_deadline(solver, x0_batch, lam0_batch, data_batch, cfg, chunk_size, max_time):
+    """Chunks dispatched from the host, with the wall-clock deadline read
+    between them (after a ``torch.cuda.synchronize()`` on the card).  The
+    lanes of the chunks never dispatched get one batched ``_init_state`` (one
+    residual and constraint evaluation, for an honest terminal state) and
+    ``Status.MAX_TIME`` unless the initialization already ended them.
+    Returns ``(BatchResult, remaining budget in seconds)``."""
+    B = x0_batch.shape[0]
+    chunk = min(B, 1024 if chunk_size is None else int(chunk_size))
+    on_card = solver.device.type == "cuda"
+    t0 = time.perf_counter()
+    parts, lo = [], 0
+    while lo < B:
+        sl = slice(lo, min(lo + chunk, B))
+        parts.append(solver.run(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl)))
+        lo = sl.stop
+        if on_card:
+            torch.cuda.synchronize(solver.device)
+        if time.perf_counter() - t0 > max_time:
+            break
+    if lo < B:
+        sl = slice(lo, B)
+        st = solver._init_state(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl))
+        unknown = st.status == Status.UNKNOWN
+        parts.append(st._replace(
+            status=torch.where(unknown, torch.full_like(st.status, int(Status.MAX_TIME)), st.status)
+        ))
+    if on_card:
+        torch.cuda.synchronize(solver.device)
+    remaining = max_time - (time.perf_counter() - t0)
+    return BatchResult(states=_concat_states(parts, data_batch), solver=solver), remaining

@@ -54,6 +54,15 @@ def _wants_data(fn: Callable) -> bool:
     return len(sig.parameters) >= 2
 
 
+def _as_dtype(J, x):
+    """A forward-mode Jacobian in ``x``'s dtype.  PyTorch's forward-mode
+    formulas turn a Python float that meets a 0-d tensor (``x[0] - 0.5``,
+    ``2.5 * x[1]``) into a float64 tensor, so a float32 residual can come
+    back with a float64 Jacobian; its entries are cast back (a no-op when
+    the dtypes already agree)."""
+    return J.to(x.dtype)
+
+
 def _dd(data):
     """vmap in_dim of a data argument: batched leaves, or nothing to map."""
     return None if data is None else 0
@@ -119,7 +128,7 @@ class NLSProblem:
         if self.jac_residual is not None:
             J = vmap(self.jac_residual, in_dims=(0, _dd(data)))(x, data)
         else:
-            J = vmap(jacfwd(self.residual), in_dims=(0, _dd(data)))(x, data)
+            J = _as_dtype(vmap(jacfwd(self.residual), in_dims=(0, _dd(data)))(x, data), x)
         return J.transpose(-2, -1)
 
     def F_and_Jt(self, x, data=None):
@@ -133,14 +142,15 @@ class NLSProblem:
             return y, y
 
         J, Fx = vmap(jacfwd(fa, has_aux=True), in_dims=(0, _dd(data)))(x, data)
-        return Fx, J.transpose(-2, -1)
+        return Fx, _as_dtype(J, x).transpose(-2, -1)
 
     def Jc(self, x, data=None):
         """(B, ncon, nvar) constraint Jacobian."""
         if self.ncon == 0:
             return x.new_zeros((x.shape[0], 0, self.nvar))
-        fn = self.jac_cons if self.jac_cons is not None else jacfwd(self.cons)
-        return vmap(fn, in_dims=(0, _dd(data)))(x, data)
+        if self.jac_cons is not None:
+            return vmap(self.jac_cons, in_dims=(0, _dd(data)))(x, data)
+        return _as_dtype(vmap(jacfwd(self.cons), in_dims=(0, _dd(data)))(x, data), x)
 
     def hess_res(self, x, r, data=None):
         """Σᵢ rᵢ ∇²Fᵢ(x), (B, n, n)."""

@@ -253,3 +253,36 @@ def test_chol_solver_on_card_matches_cpu(cuda):
     assert g.status == c.status == "first_order" and g.iter == c.iter
     assert g.solver_specific == c.solver_specific
     np.testing.assert_allclose(g.solution, c.solution, rtol=0, atol=1e-10)
+
+
+def test_model_builders_default_to_the_card(cuda):
+    from cannoles_tpu_torch import models
+    from cannoles_tpu_torch.models.families import curve_fit_family
+
+    built = [models.mgh_problem("meyer"), models.hs_problem("hs79"),
+             models.lvcon_problem("lvcon_powell_banded"), models.readme_example(),
+             models.constrained(models.mgh01()), curve_fit_family(16)]
+    for pb in built:
+        assert pb.x0.device.type == "cuda", pb.name
+        assert pb.F(pb.x0[None], None if pb.data is None else
+                    {k: v[None] for k, v in pb.data.items()}).device.type == "cuda"
+
+
+def test_battery_uniform_pass_on_card_matches_cpu(cuda):
+    """Five problems of the battery (one per family, and brown_badly_scaled
+    for its scales) through the runner's uniform pass in float64: status,
+    counters and solution on the card equal to the CPU's (1e-10 relative)."""
+    from cannoles_tpu_torch.battery import run
+
+    names = {"brown_badly_scaled", "watson_9", "helical_valley+linear", "hs46",
+             "lvcon_powell_banded_12"}
+    out = {}
+    for where in ("cuda", "cpu"):
+        out[where], _ = run(names, dtype=torch.float64, device=where, max_time=600.0, rescue=False,
+                            log=None)
+        assert len(out[where]) == 5
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert g["status"] == c["status"] and g["solved_uniform"], (g["name"], g["status"], c["status"])
+        assert (g["iter"], g["nfact"], g["nlinsolve"]) == (c["iter"], c["nfact"], c["nlinsolve"]), g["name"]
+        xg, xc = np.asarray(g["solution"]), np.asarray(c["solution"])
+        assert np.abs(xg - xc).max() <= 1e-10 * max(1.0, np.abs(xc).max()), g["name"]

@@ -91,13 +91,37 @@ def test_unconstrained_problem_shapes_and_validation():
         nls_problem(lambda x: x, np.zeros(2), 2, lambda x: x[:1], device="cpu")
 
 
+def test_float32_jacobians_stay_float32():
+    """A float32 residual or constraint that meets a Python float in a 0-d
+    expression (``x[0] - 0.5``, ``2.5 * x[1]``) gets float32 Jacobians:
+    PyTorch's forward mode makes those tangents float64."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, nls_problem
+
+    pb = nls_problem(lambda x: torch.stack([2.5 * x[0], x[1] / 10.0]), [1.0, 2.0], 2,
+                     lambda x: torch.stack([x[0] - 0.5]), [0.0], [0.0],
+                     dtype=torch.float32, device="cpu")
+    x = pb.x0[None]
+    assert pb.Jt(x).dtype == pb.F_and_Jt(x)[1].dtype == pb.Jc(x).dtype == torch.float32
+    assert CaNNOLeSSolver(pb).solve().status == "first_order"
+
+
 def _builders():
     from cannoles_tpu_torch import nls_problem
+    from cannoles_tpu_torch.models import basic, hs_problem, lvcon_problem, mgh_problem
     from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment
     from cannoles_tpu_torch.models.families import (
-        bundle_adjustment, bundle_adjustment_batch, large_rung_problem, lm_bench_family)
+        bundle_adjustment, bundle_adjustment_batch, curve_fit_family, large_rung_problem,
+        lm_bench_family)
 
     return {
+        **{f"basic.{n}": getattr(basic, n) for n in (
+            "readme_example", "rosenbrock_nls", "mgh01con", "mgh01_nofhess", "hs6", "linear_nls",
+            "chained_rosenbrock", "underdetermined")},
+        "mgh_problem": lambda **kw: mgh_problem("meyer", **kw),
+        "mgh_suite make": lambda **kw: mgh_problem("watson_9", **kw),
+        "hs_problem": lambda **kw: hs_problem("hs79", **kw),
+        "lvcon_problem": lambda **kw: lvcon_problem("lvcon_powell_banded", **kw),
+        "curve_fit_family": lambda **kw: curve_fit_family(16, **kw),
         "nls_problem": lambda **kw: nls_problem(lambda x: torch.stack([x[0] - 1, x[1]]),
                                                 np.zeros(2), 2, **kw),
         "large_rung_problem": lambda **kw: large_rung_problem(m=16, n=4, **kw),

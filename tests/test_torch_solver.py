@@ -152,3 +152,58 @@ def test_out_of_slice_options_raise():
         tc.CaNNOLeSSolver(pt).solve(resume_from=object())
     with pytest.raises(ValueError):
         tc.CaNNOLeSSolver(pt, method="bogus")
+
+
+def test_reset_to_problem_of_same_dims_matches_jax():
+    """Re-solve through ``reset`` (tests/test_solver_behavior.py): no
+    argument is a no-op; a problem of identical dimensions gets a solver
+    with the same options, dtype and device; other dimensions raise."""
+    from cannoles_tpu.models import hs6 as jhs6
+    from cannoles_tpu_torch.models import hs6 as ths6
+
+    def shifted(pkg):
+        if pkg is jc:
+            return jc.nls_problem(lambda x: jnp.array([x[0]]), jnp.array([-1.2, 1.0]), 1,
+                                  lambda x: jnp.array([10 * (x[1] - x[0] ** 2)]), [0.0], [0.0])
+        return tc.nls_problem(lambda x: torch.stack([x[0]]), [-1.2, 1.0], 1,
+                              lambda x: torch.stack([10 * (x[1] - x[0] ** 2)]), [0.0], [0.0],
+                              device="cpu")
+
+    sj = jc.CaNNOLeSSolver(jhs6(), robust_fallback=True, delta_min=1e-6)
+    st = tc.CaNNOLeSSolver(ths6(device="cpu"), robust_fallback=True, delta_min=1e-6)
+    assert st.reset() is st
+    assert_same(sj.solve(), st.solve())
+    st2 = st.reset(shifted(tc))
+    assert st2 is not st and st2.problem is not st.problem
+    for key in ("method", "linsolve", "kkt", "quality_gate", "robust_fallback", "descent_rescue",
+                "params", "dtype", "device", "pallas_chol_min"):
+        assert getattr(st2, key) == getattr(st, key), key
+    a, b = sj.reset(shifted(jc)).solve(), st2.solve()
+    assert_same(a, b)
+    assert b.status == "first_order" and np.allclose(b.solution, [0.0, 0.0], atol=1e-6)
+    with pytest.raises(ValueError, match="identical dimensions"):
+        st.reset(make("rosen")[1])
+
+
+def test_max_time_is_read_inside_an_outer_step(monkeypatch):
+    """After the first outer step, solve()'s budget is read at every host
+    sync: a step that it interrupts is dropped and the last outer iterate
+    comes back with status max_time, equal to a solve stopped there by
+    max_iter.  The clock is faked: one second per reading."""
+    from cannoles_tpu_torch.core import solver as solver_mod
+    from cannoles_tpu_torch.models import chained_rosenbrock
+
+    pb = chained_rosenbrock(device="cpu")
+    clock = iter(range(10**6))
+    monkeypatch.setattr(solver_mod.time, "time", lambda: float(next(clock)))
+    s = tc.CaNNOLeSSolver(pb)
+    st = s.solve(max_time=60.0)
+    monkeypatch.undo()
+    assert st.status == "max_time" and st.iter >= 2
+    ref = tc.CaNNOLeSSolver(pb)
+    r = ref.solve(max_iter=st.iter - 1, max_time=600.0)  # max_iter stops after iteration max_iter + 1
+    assert r.status == "max_iter" and r.iter == st.iter
+    assert st.solver_specific == r.solver_specific
+    np.testing.assert_array_equal(st.solution, r.solution)
+    assert s.host_syncs > ref.host_syncs  # the interrupted step's trips
+    assert s._deadline is None

@@ -97,7 +97,7 @@ def test_vsolve_bundle_adjustment_matches_jax():
 
 def test_vsolve_chunks_and_auto_routing():
     """Sequential chunks give the lanes of one flat batch; 'auto' routes a
-    small KKT to the fused kernel; mesh and max_time are out of the slice."""
+    small KKT to the fused kernel; mesh is out of the slice."""
     x0, d = lm_bench_batch(8, seed=2)
     pt = lm_bench_family(torch.float64, "cpu")
     flat = tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50)
@@ -107,6 +107,89 @@ def test_vsolve_chunks_and_auto_routing():
         assert torch.equal(getattr(flat.states, f), getattr(chunked.states, f)), f
     with pytest.warns(UserWarning, match="chunk_size=3 ignored"):
         tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50, chunk_size=3)
-    for kw in (dict(mesh=object()), dict(max_time=1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.vsolve(pt, x0, data_batch=d, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tc.vsolve(pt, x0, data_batch=d, mesh=object())
+
+
+def _family_pair():
+    """``_family`` of tests/test_batch.py in both packages."""
+    pj = jc.nls_problem(
+        lambda x, d: jnp.array([x[0] - d[0], 10 * (x[1] - x[0] ** 2)]), jnp.array([-1.2, 1.0]), 2,
+        lambda x, d: jnp.array([x[0] + x[1] - d[1]]), [0.0], [0.0], data=jnp.zeros((2,)), name="family",
+    )
+    pt = tc.nls_problem(
+        lambda x, d: torch.stack([x[0] - d[0], 10 * (x[1] - x[0] ** 2)]), [-1.2, 1.0], 2,
+        lambda x, d: torch.stack([x[0] + x[1] - d[1]]), [0.0], [0.0],
+        data=torch.zeros(2, dtype=torch.float64), name="family", device="cpu",
+    )
+    return pj, pt
+
+
+def test_vsolve_max_time_budget():
+    """The wall-clock budget of tests/test_batch.py: with max_time=0 the
+    first chunk is dispatched and every later lane is stamped max_time
+    after one batched init; with a budget that never binds every lane
+    solves.  Lane for lane equal to the JAX package in both cases (the last
+    chunk is short: B = 14 in chunks of 4)."""
+    pj, pt = _family_pair()
+    B, chunk = 14, 4
+    rng = np.random.default_rng(2)
+    x0s = rng.normal(scale=0.2, size=(B, 2)) + np.array([-1.2, 1.0])
+    datas = np.ones((B, 2))
+    for budget in (0.0, 600.0):
+        a = jvsolve(pj, jnp.asarray(x0s), data_batch=jnp.asarray(datas), max_iter=100,
+                    max_time=budget, chunk_size=chunk)
+        b = tc.vsolve(pt, x0s, data_batch=datas, max_iter=100, max_time=budget, chunk_size=chunk)
+        assert_lanes_equal(a, b)
+        if budget == 0.0:
+            assert b.solved_mask()[:chunk].all()
+            assert (b.status[chunk:] == int(tc.Status.MAX_TIME)).all(), b.status
+        else:
+            assert b.solved_mask().all(), b.summary()
+
+
+def test_vsolve_max_time_keeps_lanes_init_ended():
+    """A lane that its init already ends (a poisoned lane: exception) keeps
+    that status when its chunk is never dispatched."""
+    x0, d = lm_bench_batch(8)
+    d[6, 0] = np.nan
+    pt = lm_bench_family(torch.float64, "cpu")
+    b = tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50, max_time=0.0, chunk_size=4)
+    st = b.status
+    assert st[6] == int(tc.Status.EXCEPTION)
+    assert (np.delete(st[4:], 2) == int(tc.Status.MAX_TIME)).all(), st
+    assert (b.states.iter[4:] == 0).all()
+
+
+def _tall_pair():
+    """``_tall_family`` of tests/test_round5.py (m = 62, n = 2) in both packages."""
+    A = np.random.default_rng(0).normal(size=(62, 2))
+    y = A @ np.array([1.0, -2.0])
+    Aj, Ja = jnp.asarray(A), torch.as_tensor(A)
+    pj = jc.nls_problem(lambda x, d: Aj @ x - jnp.asarray(y), jnp.zeros(2), 62, name="tall")
+    pt = tc.nls_problem(lambda x, d: Ja @ x - torch.as_tensor(y), np.zeros(2), 62, name="tall",
+                        device="cpu")
+    return pj, pt
+
+
+def test_vsolve_rescue_honored_under_deadline(monkeypatch):
+    """rescue=True is not dropped under deadline dispatch: with budget left
+    the rescue runs, restricted to the dispatched lanes (the case of
+    tests/test_round5.py)."""
+    from cannoles_tpu_torch.parallel import batch as batch_mod
+
+    pj, pt = _tall_pair()
+    calls = {}
+    orig = batch_mod._rescue_unsolved
+
+    def spy(solver, result, x0, lam0, data, cfg, **kw):
+        calls["kw"] = kw
+        return orig(solver, result, x0, lam0, data, cfg, **kw)
+
+    monkeypatch.setattr(batch_mod, "_rescue_unsolved", spy)
+    b = tc.vsolve(pt, np.zeros((4, 2)), method="gauss_newton", max_time=600.0, rescue=True, max_iter=50)
+    assert "kw" in calls, "rescue pass never invoked under deadline dispatch"
+    assert calls["kw"].get("eligible") is not None
+    assert b.solved_mask().all()
+    a = jvsolve(pj, jnp.zeros((4, 2)), method="gauss_newton", max_time=600.0, rescue=True, max_iter=50)
+    assert_lanes_equal(a, b)
