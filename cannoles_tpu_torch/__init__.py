@@ -6,6 +6,11 @@ batch-native: every state tensor has a leading batch axis, and a single
 solve is the case B = 1.  The fused LDLᵀ factor+solve of every ρ-ladder
 attempt (``linsolve='pallas'``) is a hand-written CUDA kernel
 (``csrc/fused_ldlt.cu``), built with nvcc at first use on a CUDA tensor.
+Problems too large for a dense Jacobian go through the matrix-free engines
+(``MatrixFreeSolver``: CG on jvp/vjp products; ``SchurBASolver``: direct
+camera-Schur elimination for bundle adjustment); ``save_state``/
+``load_state`` and ``solve(resume_from=...)`` checkpoint and continue a
+solve, in the JAX package's file format.
 
 Problems and the model builders go to the card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.  The
@@ -28,12 +33,16 @@ Batched::
     res = vsolve(nls, x0_batch, method="lm", linsolve="pallas")
 """
 
+from .core.ba import SchurBASolver, ba_block_jacobi
+from .core.matfree import MatrixFreeSolver, MFState, solve_matfree
 from .core.solver import CaNNOLeSSolver, RunConfig, SolverState, cannoles
 from .core.status import ExecutionStats, Status, status_name
 from .params import Params
 from .parallel.batch import BatchResult, vsolve
 from .parallel.multistart import multistart
 from .problem import NLSProblem, nls_problem
+from .utils.checkpoint import load_state, save_state
+from .utils.profiling import stage_timings, trace
 
 __version__ = "0.1.0"
 
@@ -51,4 +60,13 @@ __all__ = [
     "BatchResult",
     "Params",
     "NLSProblem",
+    "MatrixFreeSolver",
+    "MFState",
+    "solve_matfree",
+    "SchurBASolver",
+    "ba_block_jacobi",
+    "save_state",
+    "load_state",
+    "stage_timings",
+    "trace",
 ]

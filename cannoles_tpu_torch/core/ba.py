@@ -1,0 +1,330 @@
+"""Camera-Schur bundle-adjustment solver: direct landmark elimination.
+
+Port of ``cannoles_tpu/core/ba.py``.  For a scene of C cameras and P
+landmarks on a (C, P) observation grid (full, or masked by ``data["vis"]``)
+the condensed Gauss–Newton system
+
+    (ρ I + JᵀJ + JcᵀJc/δ) z = b,    x = [cams (C, 6); pts (P, 3)]
+
+has the arrowhead structure [[U + Dc, W], [Wᵀ, V]]: U (C, 6, 6) and
+V (P, 3, 3) block-diagonal, W (C, P, 6, 3) the coupling.  The landmarks are
+eliminated with P closed-form 3×3 adjugate inverses, the reduced camera
+system S = U + Dc − Σₚ W Vₚ⁻¹ Wᵀ (6C × 6C) is factored with
+``torch.linalg.cholesky`` (the counterpart of the XLA Cholesky the JAX
+package calls) and back-substitution recovers the landmark step.  The
+per-observation Jacobian blocks come from ``torch.func.jacfwd`` vmapped
+over the grid; no (m, n) Jacobian is formed.
+
+An attempt succeeds when every landmark block is positive definite
+(Sylvester minors), the Jacobi-scaled S has a finite Cholesky factor with
+every pivot above ``eig_tol``, and, after one pass of iterative refinement,
+the step's relative residual on the exact operator is at most
+η = max(10·cg_rtol, 0.1).  Everything else, the outer loop, the ρ ladder
+and the statuses, is :class:`~cannoles_tpu_torch.core.matfree.MatrixFreeSolver`'s.
+
+Tensors keep the port's leading batch axis (a solve is B = 1); every
+einsum carries it as ``b``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.func import jacfwd, vjp, vmap
+
+from ..params import Params
+from ..problem import NLSProblem
+from ..utils.linalg import norm_2
+from .matfree import MatrixFreeSolver, MFState
+from .solver import _add_batch_axis, _cholesky_nan
+
+__all__ = ["SchurBASolver", "inv3x3_sym", "ba_block_jacobi"]
+
+
+def _project_default():
+    from ..models.ba_large import project_point
+
+    return project_point
+
+
+def _obs_blocks(project, x, C: int, P: int):
+    """Per-observation Jacobian blocks of ``project`` at x (B, 6C + 3P):
+    A = ∂u/∂cam (B, C, P, 2, 6) and Bm = ∂u/∂pt (B, C, P, 2, 3)."""
+    Bt = x.shape[0]
+    cams = x[:, : 6 * C].reshape(Bt, C, 6)
+    pts = x[:, 6 * C:].reshape(Bt, P, 3)
+
+    def jac_one(cam, pt):
+        A = jacfwd(lambda cc: project(cc, pt))(cam)
+        Bm = jacfwd(lambda pp: project(cam, pp))(pt)
+        return A, Bm
+
+    grid = vmap(vmap(vmap(jac_one, in_dims=(None, 0)), in_dims=(0, None)), in_dims=(0, 0))
+    A, Bm = grid(cams, pts)
+    return A.to(x.dtype), Bm.to(x.dtype)
+
+
+def _cons_jacobian(pb: NLSProblem, x, data):
+    """Jc (B, p, n) by reverse mode, p pullbacks of the constraints: at
+    n = 30,600 forward mode would push an n × n tangent basis through
+    them."""
+    _, pull = vjp(lambda z: pb.c_shifted(z, data), x)
+    eye = torch.eye(pb.ncon, dtype=x.dtype, device=x.device)
+    basis = eye[:, None, :].expand(pb.ncon, x.shape[0], pb.ncon)
+    return vmap(lambda w: pull(w)[0])(basis).transpose(0, 1)
+
+
+def _masked(A, Bm, data):
+    vis = data.get("vis") if isinstance(data, dict) else None
+    if vis is not None:
+        m = vis.to(A.dtype)[..., None, None]
+        A, Bm = A * m, Bm * m
+    return A, Bm
+
+
+def _diag(M):
+    return torch.diagonal(M, dim1=-2, dim2=-1)
+
+
+def _jacobi_scaled_inv3(V, tol):
+    """Closed-form inverses of the Jacobi-scaled 3×3 blocks D^-½ V D^-½
+    (unit diagonal), scaled back; returns (V⁻¹, posdef)."""
+    sV = torch.rsqrt(torch.clamp(_diag(V), min=1e-30))
+    Vsinv, pos = inv3x3_sym(V * sV[..., :, None] * sV[..., None, :], tol)
+    return Vsinv * sV[..., :, None] * sV[..., None, :], pos
+
+
+def ba_block_jacobi(n_cams: int, n_pts: int, project: Optional[Callable] = None):
+    """Block-Jacobi preconditioner factory for ``MatrixFreeSolver(precond=...)``
+    on BA problems: M = blockdiag(U_c + ρI, V_p + ρI), the per-camera 6×6
+    and per-landmark 3×3 Gauss–Newton blocks.  Each application is a
+    batched 3×3 adjugate inverse and a batched 6×6 Cholesky solve.
+
+    Assumes the layout ``x = [cams (C, 6); pts (P, 3)]`` with the residual
+    the raveled (C, P, 2) grid of ``project`` (masked by ``data["vis"]``
+    where given); checked against the problem's dimensions when built."""
+    C, P = int(n_cams), int(n_pts)
+    if project is None:
+        project = _project_default()
+
+    def factory(problem, x, data, rho, delta):
+        if problem.nvar != 6 * C + 3 * P or problem.nequ != 2 * C * P:
+            raise ValueError(
+                f"ba_block_jacobi({C}, {P}) expects the BA layout "
+                f"nvar=6C+3P={6*C+3*P}, nequ=2CP={2*C*P}; got "
+                f"nvar={problem.nvar}, nequ={problem.nequ} — the residual "
+                "must be the (possibly vis-masked) raveled (C, P, 2) "
+                "reprojection grid"
+            )
+        Bt = x.shape[0]
+        dt, dev = x.dtype, x.device
+        rho = torch.as_tensor(rho, dtype=dt, device=dev).reshape(-1)
+        A, Bm = _masked(*_obs_blocks(project, x, C, P), data)
+        eye6 = torch.eye(6, dtype=dt, device=dev)
+        eye3 = torch.eye(3, dtype=dt, device=dev)
+        U = torch.einsum("bcpki,bcpkj->bcij", A, A) + rho[:, None, None, None] * eye6
+        V = torch.einsum("bcpki,bcpkj->bpij", Bm, Bm) + rho[:, None, None, None] * eye3
+        Vinv, posV = _jacobi_scaled_inv3(V, 0.0)
+        # a tiny floor keeps M SPD where ρ = 0 and a camera block is singular
+        floor = 1e-10 * torch.clamp(_diag(U).flatten(1).amax(-1), min=1.0)
+        Lu = _cholesky_nan((U + floor[:, None, None, None] * eye6).reshape(-1, 6, 6)).reshape(Bt, C, 6, 6)
+        ok_u = torch.isfinite(Lu).flatten(1).all(-1)
+
+        def minv(r):
+            rc = r[:, : 6 * C].reshape(Bt, C, 6)
+            rp = r[:, 6 * C:].reshape(Bt, P, 3)
+            zc = torch.cholesky_solve(rc[..., None], Lu)[..., 0]
+            zc = torch.where(ok_u[:, None, None], zc, rc)  # identity where U broke
+            zp = torch.where(posV[..., None], torch.einsum("bpij,bpj->bpi", Vinv, rp), rp)
+            return torch.cat([zc.reshape(Bt, -1), zp.reshape(Bt, -1)], -1)
+
+        return minv
+
+    return factory
+
+
+def inv3x3_sym(V: torch.Tensor, tol: float):
+    """Closed-form inverse of symmetric (..., 3, 3) blocks via adjugates.
+
+    Returns (Vinv, posdef), posdef the per-block Sylvester test (the three
+    leading principal minors above tol-scaled bounds).  A block that fails
+    it gets a zero inverse."""
+    a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]
+    d, e, f = V[..., 1, 1], V[..., 1, 2], V[..., 2, 2]
+    cof00 = d * f - e * e
+    cof01 = c * e - b * f
+    cof02 = b * e - c * d
+    det2 = a * d - b * b
+    det3 = a * cof00 + b * cof01 + c * cof02
+    posdef = (a > tol) & (det2 > tol * a) & (det3 > tol * det2)
+    inv_det = torch.where(posdef, 1.0 / torch.where(posdef, det3, torch.ones_like(det3)),
+                          torch.zeros_like(det3))
+    i11 = a * f - c * c
+    i12 = b * c - a * e
+    i22 = a * d - b * b
+    row0 = torch.stack([cof00, cof01, cof02], -1)
+    row1 = torch.stack([cof01, i11, i12], -1)
+    row2 = torch.stack([cof02, i12, i22], -1)
+    return torch.stack([row0, row1, row2], -2) * inv_det[..., None, None], posdef
+
+
+class SchurBASolver(MatrixFreeSolver):
+    """Gauss–Newton/LM bundle-adjustment solver with direct camera-Schur
+    landmark elimination.
+
+    ``problem``: the BA problem (layout ``[cams (C, 6); pts (P, 3)]``, the
+    residual the raveled (C, P, 2) reprojection grid; build it with
+    :func:`cannoles_tpu_torch.models.ba_large.large_bundle_adjustment`).
+    ``n_cams``, ``n_pts``: C and P.  ``project``: the per-observation
+    projection ``(cam (6,), pt (3,)) -> (2,)`` (default: the pinhole model
+    of ``models/ba_large.py``).  Constraints may touch only the camera
+    block (gauge fixing).  ``frozen_cam_coords``: camera coordinates the
+    residual freezes (``gauge='fixed'``); their Jacobian columns are
+    masked to zero."""
+
+    def __init__(
+        self,
+        problem: NLSProblem,
+        n_cams: int,
+        n_pts: int,
+        *,
+        project: Optional[Callable] = None,
+        method: str = "gauss_newton",
+        frozen_cam_coords=None,
+        params: Optional[Params] = None,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        **solver_kw,
+    ):
+        super().__init__(problem, method=method, params=params, dtype=dtype, device=device, **solver_kw)
+        self.C, self.P = int(n_cams), int(n_pts)
+        if problem.nvar != 6 * self.C + 3 * self.P:
+            raise ValueError(f"nvar={problem.nvar} != 6*{n_cams} + 3*{n_pts} — not the BA layout")
+        if problem.nequ != 2 * self.C * self.P:
+            raise ValueError(
+                f"nequ={problem.nequ} != 2*C*P — residual must be the "
+                "(possibly vis-masked) raveled (C, P, 2) grid"
+            )
+        self.project = _project_default() if project is None else project
+        if frozen_cam_coords is not None:
+            idx = np.asarray(frozen_cam_coords, dtype=np.int64)
+            if idx.size and (idx.min() < 0 or idx.max() >= 6 * self.C):
+                raise ValueError("frozen_cam_coords must index the camera block")
+            mask = np.ones(6 * self.C, dtype=np.float64)
+            mask[idx] = 0.0
+            self._cam_mask = torch.as_tensor(mask.reshape(self.C, 6), dtype=self.dtype, device=self.device)
+        else:
+            self._cam_mask = None
+        if problem.ncon > 0:
+            # gauge constraints must not touch landmarks: checked once at x0
+            x0 = problem.x0.to(dtype=self.dtype, device=self.device).reshape(1, -1)
+            Jc = _cons_jacobian(problem, x0, _add_batch_axis(problem.data, self.device))[0]
+            if float(Jc[:, 6 * self.C:].abs().max()) > 0:
+                raise ValueError(
+                    "SchurBASolver requires constraints on the camera block "
+                    "only (gauge fixing); found landmark dependence"
+                )
+
+    def _blocks(self, x, data):
+        """U₀ (B, C, 6, 6), V₀ (B, P, 3, 3) and W (B, C, P, 6, 3): the
+        ρ-free blocks, shared by every attempt of one ρ ladder."""
+        A, Bm = _masked(*_obs_blocks(self.project, x, self.C, self.P), data)
+        if self._cam_mask is not None:
+            A = A * self._cam_mask[:, None, None, :]
+        U = torch.einsum("bcpki,bcpkj->bcij", A, A)
+        V = torch.einsum("bcpki,bcpkj->bpij", Bm, Bm)
+        W = torch.einsum("bcpki,bcpkj->bcpij", A, Bm)
+        return U, V, W
+
+    def _precompute(self, s: MFState):
+        pb = self.problem
+        U0, V0, W = self._blocks(s.x, s.data)
+        bx = self._rhs(s)
+        Dc = None
+        if pb.ncon > 0:
+            Jc = _cons_jacobian(pb, s.x, s.data)[:, :, : 6 * self.C]
+            Dc = torch.einsum("bki,bkj->bij", Jc, Jc) / s.delta[:, None, None]
+        return U0, V0, W, bx, Dc
+
+    def _newton_system(self, s: MFState, act):
+        """The parent's ρ ladder with the ρ-free blocks built once.  With
+        frozen gauge coordinates S is singular at ρ = 0, so the ladder
+        starts at its first regularized rung."""
+        pre = []
+
+        def attempt(rho, do):
+            if not pre:
+                pre.append(self._precompute(s))
+            return self._solve_with_blocks(s, rho, pre[0])
+
+        return self._ladder(s, act, attempt, 1 if self._cam_mask is not None else 0)
+
+    def _solve_condensed(self, s: MFState, rho, active=None):
+        """One Schur solve at ``rho`` (the parent's single-attempt API)."""
+        return self._solve_with_blocks(s, rho, self._precompute(s))
+
+    def _solve_with_blocks(self, s: MFState, rho, pre):
+        """Direct Schur solve of (ρ I + JᵀJ + JcᵀJc/δ) z = b from the
+        precomputed blocks; returns (zx, ok, 1 per lane)."""
+        pb, pr = self.problem, self.params
+        C, P = self.C, self.P
+        x, data = s.x, s.data
+        Bt = x.shape[0]
+        dt, dev = x.dtype, x.device
+        rho = torch.as_tensor(rho, dtype=dt, device=dev).reshape(-1).expand(Bt)
+        if self.method == "lm":
+            rho = rho + torch.clamp(s.damp, 1e-10, 1e8)
+        U0, V0, W, bx, Dc = pre
+        eye6 = torch.eye(6, dtype=dt, device=dev)
+        U = U0 + rho[:, None, None, None] * eye6
+        V = V0 + rho[:, None, None, None] * torch.eye(3, dtype=dt, device=dev)
+        bc = bx[:, : 6 * C].reshape(Bt, C, 6)
+        bp = bx[:, 6 * C:].reshape(Bt, P, 3)
+
+        # landmark elimination, Jacobi-scaled (f32 blocks span ~8 orders
+        # across depth; scaling keeps the small pivots and makes the minors
+        # test scale-relative)
+        Vinv, posdef = _jacobi_scaled_inv3(V, pr.eig_tol)
+        X = torch.einsum("bcpij,bpjk->bcpik", W, Vinv)
+
+        # reduced camera system S = blockdiag(U) + Dc − Σₚ X Wᵀ, (6C, 6C)
+        T = torch.einsum("bcpik,bdpjk->bcidj", X, W)
+        Ublk = torch.einsum("bcij,cd->bcidj", U, torch.eye(C, dtype=dt, device=dev))
+        S = (Ublk - T).reshape(Bt, 6 * C, 6 * C)
+        if Dc is not None:
+            S = S + Dc
+
+        # Jacobi-scaled camera system: unit diagonal before the Cholesky
+        sS = torch.rsqrt(torch.clamp(_diag(S), min=1e-30))
+        Ls = _cholesky_nan(S * sS[:, :, None] * sS[:, None, :])
+        dls = _diag(Ls)
+        okS = torch.isfinite(Ls).flatten(1).all(-1) & (dls * dls > pr.eig_tol).all(-1)
+
+        def schur_solve(bcv, bpv):
+            rcv = (bcv - torch.einsum("bcpij,bpj->bci", X, bpv)).reshape(Bt, 6 * C)
+            zcv = (sS * torch.cholesky_solve((sS * rcv)[..., None], Ls)[..., 0]).reshape(Bt, C, 6)
+            wtz = torch.einsum("bcpij,bci->bpj", W, zcv)
+            zpv = torch.einsum("bpij,bpj->bpi", Vinv, bpv - wtz)
+            return torch.cat([zcv.reshape(Bt, -1), zpv.reshape(Bt, -1)], -1)
+
+        def matvec(v):
+            out = rho[:, None] * v + pb.jtprod_res(x, pb.jprod_res(x, v, data), data)
+            if pb.ncon > 0:
+                out = out + pb.jtprod_cons(x, pb.jprod_cons(x, v, data), data) / s.delta[:, None]
+            return out
+
+        def split(v):
+            return v[:, : 6 * C].reshape(Bt, C, 6), v[:, 6 * C:].reshape(Bt, P, 3)
+
+        zx = schur_solve(bc, bp)
+        # one pass of operator-level iterative refinement (the adjugate
+        # inverses and the float32 einsum chain lose 3-4 digits)
+        zx = zx + schur_solve(*split(bx - matvec(zx)))
+        # backward-error gate at the inexact-Newton forcing bound
+        nb2 = norm_2(bx)
+        relres = norm_2(bx - matvec(zx)) / torch.where(nb2 > 0, nb2, torch.ones_like(nb2))
+        eta = max(self.cg_rtol * 10, 0.1)
+        ok = posdef.all(-1) & okS & torch.isfinite(zx).all(-1) & (relres <= eta)
+        return zx, ok, torch.ones((Bt,), dtype=torch.int32, device=dev)

@@ -19,8 +19,8 @@ count depends on the data, so here the state machine is written batched:
 XLA's cholesky) and the blocked Cholesky kernels of ``ops/block_chol.py`` at
 or above it.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``linsolve='cpp'`` and ``resume_from``.  The XLA/TPU seams ``_scalar_mode``,
+Not in this slice (it raises ``NotImplementedError`` naming its ROADMAP
+item): ``linsolve='cpp'``.  The XLA/TPU seams ``_scalar_mode``,
 ``_reuse_trial_linearization``, ``_descent_rescue_eigh`` and
 ``matmul_precision`` are not ported: float32 matmuls run in full float32
 (TF32 is switched off explicitly, see ``CaNNOLeSSolver.__init__``), which is
@@ -1018,22 +1018,32 @@ class CaNNOLeSSolver:
         outer step of the port can take thousands of host trips (an inner
         loop up to ``max_inner`` iterations), where the JAX package runs it
         as one compiled call.  A step that the budget interrupts is dropped,
-        and the last outer iterate is returned with status ``max_time``."""
-        if resume_from is not None:
-            raise NotImplementedError("resume_from is not ported yet: ROADMAP queue 1 item 9")
+        and the last outer iterate is returned with status ``max_time``.
+
+        ``resume_from``: a state with B = 1 (``last_state``, or one loaded
+        with ``utils.checkpoint.load_state``) to continue.  Its tolerances
+        ride the state; explicit ``atol``/``rtol``/``Fatol``/``Frtol``
+        re-target the run from the current iterate (ϵtol = atol +
+        rtol·‖∇L‖ now)."""
         pb = self.problem
         pb.validate_for_solve()
         t0 = time.time()
-        x0 = pb.x0 if x0 is None else x0
-        lam0 = pb.y0 if lam0 is None else lam0
-        x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device).reshape(1, -1)
-        lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
-        data = _add_batch_axis(pb.data, self.device)
         cfg = self.make_config(**numeric)
         stats = stats or ExecutionStats()
         stats.status = "unknown"
 
-        state = self._init_state(x0, lam0, cfg, data)
+        if resume_from is not None:
+            state = resume_from._replace(status=torch.zeros_like(resume_from.status))
+            if {"atol", "rtol", "Fatol", "Frtol"} & numeric.keys():
+                epstol = cfg.atol + cfg.rtol * state.normdual
+                epsF = cfg.Fatol + cfg.Frtol * 2 * torch.sqrt(state.fx)
+                state = state._replace(epstol=epstol, epsF=epsF, epsc=torch.sqrt(epstol))
+        else:
+            x0 = pb.x0 if x0 is None else x0
+            lam0 = pb.y0 if lam0 is None else lam0
+            x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device).reshape(1, -1)
+            lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
+            state = self._init_state(x0, lam0, cfg, _add_batch_axis(pb.data, self.device))
         self._sync_stats(state, stats, time.time() - t0)
         if verbose > 0:
             self._log_header()

@@ -1,8 +1,8 @@
 """Large single-scene bundle adjustment with a full (or masked) visibility
 grid.
 
-Port of ``cannoles_tpu/models/ba_large.py`` (the scene builder only; the
-structured ``SchurBASolver`` of ``core/ba.py`` is not ported yet).  Layout
+Port of ``cannoles_tpu/models/ba_large.py``; ``core/ba.py``'s
+``SchurBASolver`` and ``ba_block_jacobi`` solve these scenes.  Layout
 ``x = [cams (C, 6).ravel(); pts (P, 3).ravel()]``, pose = (angle-axis w,
 translation t), pinhole projection u = f·(R(X − t))_{xy}/z.  The scene, the
 visibility mask, the gauge constants and x0 are drawn with numpy in the JAX

@@ -9,10 +9,11 @@ written with torch ops, and every evaluator below works on a batch: ``x`` is
 (B, nvar) and ``data`` is ``None`` or a pytree (tensor, dict, tuple) whose
 leaves carry the same leading B axis.  Values are batched with
 ``torch.func.vmap`` over ``(x, data)``; derivatives come from
-``torch.func.jacfwd`` and ``torch.func.hessian``.
-
-Not ported yet: the matrix-free products ``jprod``/``jtprod``/``hprod``
-(ROADMAP queue 1 item 3) and the shard_map basis of the JAX package.
+``torch.func.jacfwd`` and ``torch.func.hessian``.  The matrix-free
+products (``jprod_res``, ``jtprod_res``, ``jprod_cons``, ``jtprod_cons``,
+``hprod_res``, ``hprod_cons``, ``hprod_lag``) are one ``torch.func.jvp``,
+``vjp`` or forward-over-reverse pass each, batched the same way; they never
+form a Jacobian.  The shard_map basis of the JAX package has no counterpart.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
-from torch.func import hessian, jacfwd, vmap
+from torch.func import grad, hessian, jacfwd, jvp, vjp, vmap
 
 __all__ = ["NLSProblem", "nls_problem", "default_device", "Counters"]
 
@@ -174,6 +175,93 @@ class NLSProblem:
         else:
             fn = hessian(lambda z, w, d: (self.cons(z, d) * w).sum())
         return vmap(fn, in_dims=(0, 0, _dd(data)))(x, y, data)
+
+    # ---- matrix-free products (NLPModels jprod/jtprod/hprod parity) ----
+    # x (B, nvar); v, w, r, y carry the same batch axis; no Jacobian is formed
+    def jprod_res(self, x, v, data=None):
+        """J(x) v, (B, nequ): one forward-mode pass (jprod_residual!)."""
+
+        def one(z, u, d):
+            return jvp(lambda zz: self.residual(zz, d), (z,), (u,))[1]
+
+        return vmap(one, in_dims=(0, 0, _dd(data)))(x, v, data)
+
+    def jtprod_res(self, x, w, data=None):
+        """J(x)ᵀ w, (B, nvar): one reverse-mode pass (jtprod_residual!)."""
+
+        def one(z, ww, d):
+            return vjp(lambda zz: self.residual(zz, d), z)[1](ww)[0]
+
+        return vmap(one, in_dims=(0, 0, _dd(data)))(x, w, data)
+
+    def res_pullback(self, x, data=None):
+        """w ↦ J(x)ᵀ w for repeated use at one x: one forward pass with its
+        graph kept, then a backward pass per call (the same values as
+        ``jtprod_res``)."""
+        _, pull = vjp(lambda z: self.F(z, data), x)
+        return lambda w: pull(w)[0]
+
+    def jprod_cons(self, x, v, data=None):
+        """Jc(x) v, (B, ncon) (jprod!)."""
+        if self.ncon == 0:
+            return x.new_zeros((x.shape[0], 0))
+
+        def one(z, u, d):
+            return jvp(lambda zz: self.cons(zz, d), (z,), (u,))[1]
+
+        return vmap(one, in_dims=(0, 0, _dd(data)))(x, v, data)
+
+    def jtprod_cons(self, x, w, data=None):
+        """Jc(x)ᵀ w, (B, nvar) (jtprod!)."""
+        if self.ncon == 0:
+            return torch.zeros_like(x)
+
+        def one(z, ww, d):
+            return vjp(lambda zz: self.cons(zz, d), z)[1](ww)[0]
+
+        return vmap(one, in_dims=(0, 0, _dd(data)))(x, w, data)
+
+    def hprod_res(self, x, r, v, data=None):
+        """(Σᵢ rᵢ ∇²Fᵢ(x)) v, (B, nvar), forward over reverse (hprod_residual!)."""
+        if not self.has_residual_hessian:
+            raise NotImplementedError(
+                f"problem '{self.name}' provides no residual Hessian; "
+                "use method='gauss_newton' (reference :Newton_noFHess)"
+            )
+
+        def one(z, w, u, d):
+            g = grad(lambda zz: (self.residual(zz, d) * w).sum())
+            return jvp(g, (z,), (u,))[1]
+
+        return vmap(one, in_dims=(0, 0, 0, _dd(data)))(x, r, v, data)
+
+    def hprod_cons(self, x, y, v, data=None):
+        """(Σᵢ yᵢ ∇²cᵢ(x)) v, (B, nvar): hprod! with obj_weight = 0."""
+        if self.ncon == 0:
+            return torch.zeros_like(x)
+
+        def one(z, w, u, d):
+            g = grad(lambda zz: (self.cons(zz, d) * w).sum())
+            return jvp(g, (z,), (u,))[1]
+
+        return vmap(one, in_dims=(0, 0, 0, _dd(data)))(x, y, v, data)
+
+    def hprod_lag(self, x, y, v, *, obj_weight=1.0, data=None):
+        """∇²ₓₓ(σ·½‖F‖² + yᵀc) v, (B, nvar): the NLPModels hprod! contract,
+        the Gauss–Newton term JᵀJv plus the residual and constraint
+        curvature."""
+
+        def lag(z, w, d):
+            F = self.residual(z, d)
+            val = obj_weight * 0.5 * (F * F).sum()
+            if self.ncon > 0:
+                val = val + (self.cons(z, d) * w).sum()
+            return val
+
+        def one(z, w, u, d):
+            return jvp(grad(lambda zz: lag(zz, w, d)), (z,), (u,))[1]
+
+        return vmap(one, in_dims=(0, 0, 0, _dd(data)))(x, y, v, data)
 
 
 def _as_tensor(v, dtype, device):

@@ -78,7 +78,29 @@ the card (``max_time=60``, the runner's default).
    4's other settings): with ``max_time=0`` chunk 0's statuses equal phase
    4's before its rescue and every later lane is ``max_time``; with
    ``max_time=600`` every status equals phase 4's; the LDLᵀ kernel's
-   counter, set to 0 before this phase, must rise.
+   counter, set to 0 before this phase, must rise;
+14. BA scene at full width: ``bench_ba_large.run_scene`` on
+   ``large_bundle_adjustment(100, 10_000)`` (n = 30,600, m = 2,000,000),
+   float32, through ``SchurBASolver`` and ``MatrixFreeSolver(cg_maxiter=600,
+   precond=ba_block_jacobi(100, 10_000))``, with the frozen gauge (one
+   Gauss–Newton phase) and the constrained gauge (LM with the multiplier
+   refit, then two ``solve(resume_from=...)`` continuations); every run
+   ``first_order`` with max |x − x_true| ≤ ``BA_SCENE_RECOVERY_BAR``; per
+   run iter, nfact, ncg, objective, recovery error, wall, the CUDA-event
+   span, the device's busy share of a profiled window, host syncs and peak
+   device memory;
+15. BA engines card vs CPU: ``BA_PARITY_CASES`` in float64 through both
+   engines on the card and on the CPU under the benchmark protocol, status
+   and iter/nfact/ncg/nlinsolve equal and solutions within 1e-10 (the runs
+   named in ``BA_PARITY_NAMED`` with their own bars); then checkpoints on
+   the card: a ``SchurBASolver``
+   solve and a dense ``CaNNOLeSSolver`` solve of ``rosenbrock+linear``
+   saved at ``max_iter=2``, loaded and resumed, bit for bit equal to the
+   straight-through solve.
+
+Phases 14 and 15 run in this process while the pool's workers solve the
+battery of phases 11-12 (no custom kernel runs in them: the Schur system
+is ``torch.linalg.cholesky``'s, as the JAX package's is XLA's).
 
 The launch counter of the LDLᵀ kernel is set to 0 just before phase 4 and
 read after phase 5; each rung must launch it.  The Cholesky kernels'
@@ -805,6 +827,14 @@ BATTERY_COUNTERS = {
 # and the CPU part within the first iterations; the CPU (as the JAX
 # package) runs to max_eval, the card may find a first-order point.
 BATTERY_STATUS = {"hs27": "δ-floor thrash amplifies rounding (ROADMAP queue 3)"}
+# Phase 12, float32 with the rescues: rows known to stay unsolved, each a
+# float32 knife edge, not a fault (printed, not a gate: the gate is ≥ 86).
+BATTERY_F32_UNSOLVED = {
+    # rescue 1b's steps from the JAX package's own float32 states take its
+    # decisions for 28 outer iterations; the whole runs part by rounding
+    # and end exception (port) and first_order (JAX): tests/test_torch_fault_a.py
+    "brown_almost_linear+linear": "float32 knife edge under rescue 1b (ROADMAP queue 3, closed)",
+}
 # Problems whose solutions, with equal counters, differ by more than 1e-10
 # relative: each stops (rtol=1e-5) where F or J is nearly rank-deficient,
 # so x is fixed only to rounding × 1/σ_min along some direction.  Their
@@ -841,10 +871,12 @@ def _worker_init():
     torch.set_num_threads(1)
 
 
-def battery_pool(workers):
+def battery_pool(workers, meanwhile=None):
     """Phases 11 and 12's 270 solves (the 90 problems in each of
     BATTERY_SETTINGS) in one pool of ``workers`` processes, the longest
-    rows first.  Returns ``({label: (rows, summary)}, wall seconds)``."""
+    rows first; ``meanwhile()`` runs in this process while the workers
+    solve.  Returns ``({label: (rows, summary)}, wall seconds, what
+    meanwhile returned)``."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, as_completed
 
@@ -863,6 +895,7 @@ def battery_pool(workers):
                 f = pool.submit(battery.solve_index, i, dtype=dtype, device=device,
                                 max_time=max_time, rescue=rescue)
                 futures[f] = (label, i)
+        side = meanwhile() if meanwhile is not None else None
         rows = {label: [None] * len(items) for label in BATTERY_SETTINGS}
         for f in as_completed(futures):
             label, i = futures[f]
@@ -877,7 +910,7 @@ def battery_pool(workers):
         if bad:
             raise AssertionError(f"battery ({label}): problems raised: {bad}")
         out[label] = (rs, battery.summarize(rs, wall_s=sum(r["time"] for r in rs)))
-    return out, wall
+    return out, wall, side
 
 
 def phase_battery_parity(dev, pool_rows):
@@ -985,6 +1018,9 @@ def phase_battery(dev, pool_rows, pool_wall):
     ms_rows = [(r["name"], r["multistart_host_syncs"], r["rescue"]) for r in rows
                if r["multistart_host_syncs"] is not None]
     _log(f"  multistart rows (name, host syncs of the sweep, rescue): {ms_rows}")
+    unsolved = [r["name"] for r in rows if not r["solved"]]
+    _log(f"  unsolved, named float32 knife edges: {[n for n in unsolved if n in BATTERY_F32_UNSOLVED]}; "
+         f"not named: {[n for n in unsolved if n not in BATTERY_F32_UNSOLVED]}")
     if summ["solved"] < 86:
         raise AssertionError(f"battery f32 solved {summ['solved']}/90 < 86")
     prof = _profiled_solve(dev, "beale")
@@ -1040,6 +1076,127 @@ def phase_deadline(dev, head):
                 raise AssertionError("deadline max_time=600: statuses differ from phase 4's")
         out[f"max_time={budget:g}"] = dict(launches=launches, wall_s=wall,
                                            solved=res.summary()["solved"])
+    return out
+
+
+# Phase 14: benchmarks/bench_ba_large.py's scene at its full width (100
+# cameras, 10,000 landmarks: n = 30,600, m = 2,000,000), float32, through
+# both engines and both gauges.  Bars on each run's max |x − x_true|: twice
+# the first reading of this scene on an H100 (NVIDIA H100 80GB HBM3, 700 W,
+# torch 2.11: 7.1e-4, 6.4e-2, 2.3e-6, 8.7e-5), rounded up.  The solves are
+# deterministic on one software stack; twice leaves room for another
+# rounding path (a cuBLAS algorithm choice), and a larger error means the
+# trajectory changed.  The frozen-gauge CG run stops at rtol = 1e-5 after
+# two outer iterations with CG at its float32 tolerance eps^0.45 ≈ 7.6e-4:
+# its x is that loose by design, not by fault.
+BA_SCENE = (100, 10_000)
+BA_SCENE_RECOVERY_BAR = {
+    ("fixed", "schur"): 2e-3, ("fixed", "matfree_cg"): 0.13,
+    ("constraints", "schur"): 5e-6, ("constraints", "matfree_cg"): 2e-4,
+}
+# Phase 15: small scenes in float64 on the card and on the CPU under the
+# benchmark protocol (atol = 0, rtol = 1e-5, max_iter = 60).
+BA_PARITY_CASES = ((3, 12, "constraints"), (4, 40, "fixed"))
+BA_PARITY_TOL = dict(atol=0.0, rtol=1e-5, max_iter=60, max_time=600.0)
+# The generic CG engine stops CG at eps^0.45, where the iteration count and
+# the last digits of x follow rounding (the JAX package and the port on one
+# CPU part the same way: tests/test_torch_ba_matfree.py).  Its runs keep
+# status, iter, nfact and nlinsolve equal; ncg within 2 or 2% and x within
+# 1e-8 (ten times the H100's largest reading, 7.8e-10 on 4x40).
+BA_PARITY_NAMED = {
+    "3x12 constraints matfree": "CG iteration count at eps^0.45 (knife edge; equal here on an H100, "
+                                "824 vs 828 at tests/test_torch_gpu.py's tolerances)",
+    "4x40 fixed matfree": "CG iteration count at eps^0.45 (knife edge; 61 vs 62 on an H100)",
+}
+
+
+def phase_ba_scene(dev):
+    """Phase 14: ``bench_ba_large.run_scene`` in both gauges; every run
+    must end first_order with max |x − x_true| ≤ BA_SCENE_RECOVERY_BAR."""
+    from cannoles_tpu_torch.bench_ba_large import run_scene
+
+    out = {}
+    for gauge in ("fixed", "constraints"):
+        t0 = time.perf_counter()
+        res = run_scene(*BA_SCENE, gauge=gauge, device=dev, dtype=torch.float32,
+                        log=lambda *a: _log("   ", *a))
+        res["scene_wall_s"] = time.perf_counter() - t0
+        for eng in ("schur", "matfree_cg"):
+            r = res[eng]
+            _log(f"  {gauge} {eng}: {r['status']}, iter {r['iter']}, nfact {r['nfact']}, ncg {r['ncg']}, "
+                 f"objective {r['objective']:.4e}, max |x - x_true| {r['recovery_err']:.4e}, "
+                 f"wall {r['wall_s']:.3f} s, device span {r['device_solve_s']:.3f} s, busy share "
+                 f"{r['busy_share']:.4f} ({r['device_busy_s']:.4f} of a {r['window_wall_s']:.4f} s window), "
+                 f"host syncs {r['host_syncs']}, peak device memory {r['peak_mem_gb']:.3f} GB")
+            if r["status"] != "first_order" or not r["recovery_err"] <= BA_SCENE_RECOVERY_BAR[gauge, eng]:
+                raise AssertionError(f"BA scene {gauge} {eng}: {r['status']}, error {r['recovery_err']}")
+        _log(f"  {gauge} gauge: both engines in {res['scene_wall_s']:.3f} s")
+        out[gauge] = res
+    return out
+
+
+def phase_ba_scene_parity(dev):
+    """Phase 15: both engines in float64 on the card and on the CPU (status
+    and counters equal, solutions within 1e-10 unless named in
+    BA_PARITY_NAMED); then checkpoints on the card: a solve saved at
+    max_iter=2, loaded and resumed equals the straight-through solve bit
+    for bit (SchurBASolver, and the dense solver on a battery problem)."""
+    import tempfile
+
+    from cannoles_tpu_torch import (CaNNOLeSSolver, MatrixFreeSolver, SchurBASolver, ba_block_jacobi,
+                                    load_state, save_state)
+    from cannoles_tpu_torch.battery import collect
+    from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment
+
+    out = {}
+    for C, P, gauge in BA_PARITY_CASES:
+        for eng in ("schur", "matfree"):
+            runs = []
+            for where in (dev, torch.device("cpu")):
+                pb, _ = large_bundle_adjustment(C, P, noise=0.0, seed=0, gauge=gauge,
+                                                dtype=torch.float64, device=where)
+                frozen = pb.data["gidx"].cpu().numpy() if gauge == "fixed" else None
+                s = (SchurBASolver(pb, C, P, frozen_cam_coords=frozen) if eng == "schur" else
+                     MatrixFreeSolver(pb, cg_maxiter=500, precond=ba_block_jacobi(C, P)))
+                t0 = time.perf_counter()
+                runs.append((s.solve(**BA_PARITY_TOL), time.perf_counter() - t0))
+            (g, tg), (c, tc) = runs
+            key = f"{C}x{P} {gauge} {eng}"
+            cg = (g.status, g.iter, *(g.solver_specific[k] for k in ("nfact", "ncg", "nlinsolve")))
+            cc = (c.status, c.iter, *(c.solver_specific[k] for k in ("nfact", "ncg", "nlinsolve")))
+            dx = float(np.abs(g.solution - c.solution).max())
+            _log(f"  {key} f64: card {cg} in {tg:.3f} s, CPU {cc} in {tc:.3f} s, max |x_gpu - x_cpu| {dx:.3e}")
+            if key in BA_PARITY_NAMED:
+                ok = (cg[:3] + cg[4:] == cc[:3] + cc[4:] and abs(cg[3] - cc[3]) <= max(2, 0.02 * cc[3])
+                      and dx <= 1e-8)
+            else:
+                ok = cg == cc and dx <= 1e-10
+            if not ok:
+                raise AssertionError(f"card vs CPU ({key}): {cg} vs {cc}, dx {dx}")
+            out[key] = dict(card=cg, cpu=cc, dx=dx, card_s=tg, cpu_s=tc)
+    tol = dict(atol=1e-14, rtol=0.0)
+    pb, _ = large_bundle_adjustment(3, 12, noise=0.0, seed=0, dtype=torch.float64, device=dev)
+    dense_pb = next(it[2] for it in collect() if it[1] == "rosenbrock+linear")(dtype=torch.float64, device=dev)
+    cases = (("SchurBASolver 3x12", lambda: SchurBASolver(pb, 3, 12), tol, pb.data),
+             ("CaNNOLeSSolver rosenbrock+linear", lambda: CaNNOLeSSolver(dense_pb),
+              dict(atol=0.0, rtol=1e-5), None))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, make, skw, template in cases:
+            s = make()
+            first = s.solve(max_iter=2, **skw)
+            path = pathlib.Path(tmp) / "state.npz"
+            save_state(path, s.last_state)
+            # no tolerance keywords: they ride the state (given, they would re-target it)
+            resumed = s.solve(resume_from=load_state(path, data_template=template, device=dev))
+            straight = make().solve(**skw)
+            same = (resumed.status, resumed.iter) == (straight.status, straight.iter) and np.array_equal(
+                resumed.solution, straight.solution)
+            _log(f"  checkpoint {name} on the card: saved at iter {first.iter} ({first.status}), resumed "
+                 f"{resumed.status} iter {resumed.iter}, straight {straight.status} iter {straight.iter}, "
+                 f"bit-equal {same}")
+            if not same:
+                raise AssertionError(f"checkpoint {name}: resume differs from the straight-through solve")
+            out[f"checkpoint {name}"] = dict(iter=straight.iter, status=straight.status)
     return out
 
 
@@ -1151,7 +1308,17 @@ def main() -> int:
     workers = min(4, os.cpu_count() or 1)
     _phase(f"phases 11-12: the battery's 90 problems in three settings, {workers} worker processes "
            f"({os.cpu_count()} CPUs)")
-    pool_rows, pool_wall = battery_pool(workers)
+    def large_ba():
+        # the card work of phases 14-15 runs here while the workers solve
+        _phase("phase 14: BA scene 100x10,000 through SchurBASolver and MatrixFreeSolver (beside the pool)")
+        t0 = time.perf_counter()
+        scene = phase_ba_scene(dev)
+        _phase("phase 15: BA engines card vs CPU in float64, checkpoints on the card (beside the pool)")
+        parity = phase_ba_scene_parity(dev)
+        return dict(scene=scene, parity=parity, wall_s=time.perf_counter() - t0)
+
+    pool_rows, pool_wall, large = battery_pool(workers, large_ba)
+    _log(f"  phases 14-15 took {large['wall_s']:.3f} s beside the pool")
     _phase("phase 11: the battery's uniform pass in float64, card vs CPU")
     parity11 = phase_battery_parity(dev, pool_rows)
     _phase("phase 12: the battery with its rescues in float32 on the card")
@@ -1211,7 +1378,7 @@ def main() -> int:
         "shape": "f64 nb=256 B=1 (one block)",
         "blocked_route": times7["blocked"],
         "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor: the block kernel + torch.matmul)",
-    }], "battery": {"parity_f64": parity11, "f32_card": battery12}}))
+    }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

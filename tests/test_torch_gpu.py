@@ -286,3 +286,62 @@ def test_battery_uniform_pass_on_card_matches_cpu(cuda):
         assert (g["iter"], g["nfact"], g["nlinsolve"]) == (c["iter"], c["nfact"], c["nlinsolve"]), g["name"]
         xg, xc = np.asarray(g["solution"]), np.asarray(c["solution"])
         assert np.abs(xg - xc).max() <= 1e-10 * max(1.0, np.abs(xc).max()), g["name"]
+
+
+def test_matfree_engines_default_to_the_card(cuda):
+    """MatrixFreeSolver and SchurBASolver follow the problem to the card,
+    and the BA bench's device defaults to cuda."""
+    from cannoles_tpu_torch import MatrixFreeSolver, SchurBASolver
+    from cannoles_tpu_torch.bench_ba_large import parser
+
+    pb, _ = large_bundle_adjustment(3, 12, noise=0.0, seed=0)
+    assert pb.x0.device.type == "cuda"
+    for s in (MatrixFreeSolver(pb), SchurBASolver(pb, 3, 12)):
+        assert s.device.type == "cuda"
+        st = s.solve(max_iter=2, atol=0.0, rtol=1e-5)
+        assert s.last_state.x.device.type == "cuda" and st.iter >= 1
+    assert parser().parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("engine", ["schur", "matfree"])
+def test_matfree_engines_on_card_match_cpu(cuda, engine):
+    """The 3×12 scene in float64: the same status and counters on the card
+    and on the CPU, solutions within 1e-10.  The generic CG engine stops CG
+    at eps^0.45, where its iteration count and the last digits of x follow
+    rounding (an H100 read ncg 824 against the CPU's 828): for it ncg
+    within 1% and x within 1e-8."""
+    from cannoles_tpu_torch import MatrixFreeSolver, SchurBASolver, ba_block_jacobi
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pb, _ = large_bundle_adjustment(3, 12, noise=0.0, seed=0, dtype=torch.float64, device=dev)
+        s = (SchurBASolver(pb, 3, 12) if engine == "schur"
+             else MatrixFreeSolver(pb, cg_maxiter=300, precond=ba_block_jacobi(3, 12)))
+        out[dev.type] = s.solve(max_time=600.0, atol=1e-14, rtol=0.0)
+    g, c = out["cuda"], out["cpu"]
+    assert (g.status, g.iter) == (c.status, c.iter)
+    for k in ("nfact", "nlinsolve", "nbk"):
+        assert g.solver_specific[k] == c.solver_specific[k], k
+    ncg_g, ncg_c = g.solver_specific["ncg"], c.solver_specific["ncg"]
+    if engine == "schur":
+        assert ncg_g == ncg_c
+        assert np.abs(g.solution - c.solution).max() <= 1e-10
+    else:
+        assert abs(ncg_g - ncg_c) <= max(2, 0.01 * ncg_c)
+        assert np.abs(g.solution - c.solution).max() <= 1e-8
+
+
+def test_checkpoint_saved_on_card_loads_on_cpu(cuda, tmp_path):
+    from cannoles_tpu_torch import SchurBASolver, load_state, save_state
+
+    pb, _ = large_bundle_adjustment(3, 12, noise=0.0, seed=0, dtype=torch.float64)
+    s = SchurBASolver(pb, 3, 12)
+    s.solve(max_iter=2, atol=1e-14, rtol=0.0)
+    save_state(tmp_path / "mf.npz", s.last_state)
+    back = load_state(tmp_path / "mf.npz", data_template=pb.data, device="cpu")
+    assert back.x.device.type == "cpu" and back.data["obs"].device.type == "cpu"
+    for f in back._fields[:-1]:
+        assert torch.equal(getattr(back, f), getattr(s.last_state, f).cpu()), f
+    pc, _ = large_bundle_adjustment(3, 12, noise=0.0, seed=0, dtype=torch.float64, device="cpu")
+    st = SchurBASolver(pc, 3, 12).solve(resume_from=back, atol=1e-14, rtol=0.0)
+    assert st.status in ("first_order", "small_residual")
