@@ -19,12 +19,14 @@ count depends on the data, so here the state machine is written batched:
 XLA's cholesky) and the blocked Cholesky kernels of ``ops/block_chol.py`` at
 or above it.
 
-Not in this slice (it raises ``NotImplementedError`` naming its ROADMAP
-item): ``linsolve='cpp'``.  The XLA/TPU seams ``_scalar_mode``,
-``_reuse_trial_linearization``, ``_descent_rescue_eigh`` and
-``matmul_precision`` are not ported: float32 matmuls run in full float32
-(TF32 is switched off explicitly, see ``CaNNOLeSSolver.__init__``), which is
-what the JAX package's critical contractions pin with ``precision='highest'``.
+``linsolve='cpp'`` is the host C++ LDLᵀ of ``ops/cpp_ldlt.py`` (a host
+round trip per attempt, as the JAX package's ``pure_callback``).
+
+The XLA/TPU seams ``_scalar_mode``, ``_reuse_trial_linearization``,
+``_descent_rescue_eigh`` and ``matmul_precision`` are not ported: float32
+matmuls run in full float32 (TF32 is switched off explicitly, see
+``CaNNOLeSSolver.__init__``), which is what the JAX package's critical
+contractions pin with ``precision='highest'``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 
 from ..ops.block_chol import block_cho_solve, block_cholesky, block_forward_solve
 from ..ops.cgls import cgls
+from ..ops.cpp_ldlt import cpp_ldlt_factor_solve
 from ..ops.fused_ldlt import fused_ldlt_solve
 from ..ops.ldlt import eigh_factor, eigh_solve, inertia_success, ldlt_factor, ldlt_solve
 from ..params import F_BLOWUP, MAX_DLAMBDA, SMAX, Params
@@ -64,9 +67,6 @@ _METHOD_ALIASES = {
 }
 AVAILABLE_LINSOLVE = ("ldlt", "eigh", "pallas", "cpp", "chol")
 _LINSOLVE_ALIASES = {"ldlfactorizations": "ldlt", "ma57": "eigh", "pallas_ldl": "pallas"}
-_NOT_PORTED = {
-    "cpp": "linsolve='cpp' (host C++ LDLT) is not ported yet: ROADMAP queue 1 item 14",
-}
 
 
 def _check_available_method(method: str) -> str:
@@ -246,8 +246,6 @@ class CaNNOLeSSolver:
                 "linsolve='chol' requires kkt='condensed' (the full KKT system "
                 "is indefinite in the residual block)"
             )
-        if linsolve in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[linsolve])
         self.linsolve = linsolve
         self.kkt = kkt
         self.problem = problem
@@ -419,6 +417,8 @@ class CaNNOLeSSolver:
         if self.linsolve == "eigh":
             fac = eigh_factor(W, pr.eig_tol)
             return eigh_solve(fac, rhs, pr.eig_tol), inertia_success(fac.vec, fac.mat, n, pr.eig_tol)
+        if self.linsolve == "cpp":
+            return cpp_ldlt_factor_solve(W, rhs, n, pr.eig_tol)
         if self.linsolve == "chol":
             return self._attempt_chol(W, rhs)
         fac = ldlt_factor(W, pr.eig_tol)

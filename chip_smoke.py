@@ -98,9 +98,36 @@ the card (``max_time=60``, the runner's default).
    saved at ``max_iter=2``, loaded and resumed, bit for bit equal to the
    straight-through solve.
 
+16. huge separable fit: ``bench_matfree.run_fit``, the JAX script
+   ``benchmarks/bench_matfree.py``'s problem at its widths (m = 2,097,152,
+   n = 4,096, float32: residual sin(t fᵀ) @ w − y through the tiled
+   ``SinFeatureMatvec``) and recipe (``MatrixFreeSolver(cg_maxiter=100)``,
+   ``max_iter=30``, ``max_time=600``); status ``first_order`` or
+   ``small_residual``, objective at most 1e-3 of its value at w = 0 and
+   within ``FIT_OBJECTIVE_FACTOR`` of its first H100 reading, peak device
+   memory at most ``FIT_PEAK_GB``, max |w − w_true| at most
+   ``FIT_PARAM_ERR_BAR``; per run iter, nfact, ncg, objective, the error,
+   wall, the CUDA-event span, tiled products and ms per product, host
+   syncs, peak memory and the device's busy share of a profiled first
+   outer iteration;
+17. card vs CPU in float64: the fit at ``FIT_PARITY`` (status equal; iter,
+   nfact, nlinsolve, neval_residual equal, ncg within ``FIT_PARITY_NCG``
+   and solutions within ``FIT_PARITY_DX``, or the named knife edge of the
+   first-order test after the first outer step: see ``phase_fit_parity``);
+   and a dense solve with ``linsolve="cpp"`` (the host C++ LDLᵀ, a host
+   round trip from the card) equal to ``linsolve="ldlt"`` on the card:
+   status, iter and nfact equal, solutions within 1e-12;
+18. examples: ``examples/torch_01_basics.py``, ``torch_02_batched_sweep.py``
+   and ``torch_04_bundle_adjustment.py`` on the card, each in a process of
+   its own, all started when the pool starts; each must exit 0.
+
 Phases 14 and 15 run in this process while the pool's workers solve the
 battery of phases 11-12 (no custom kernel runs in them: the Schur system
-is ``torch.linalg.cholesky``'s, as the JAX package's is XLA's).
+is ``torch.linalg.cholesky``'s, as the JAX package's is XLA's), and the
+examples of phase 18 run beside them.  Phase 16, the one phase that keeps
+the card busy for seconds on end, runs after the pool.  No custom kernel
+runs in phases 16-17: the tiled product is plain PyTorch, as the JAX
+script's is plain ``jnp``, and the cpp backend is host C++.
 
 The launch counter of the LDLᵀ kernel is set to 0 just before phase 4 and
 read after phase 5; each rung must launch it.  The Cholesky kernels'
@@ -1200,6 +1227,195 @@ def phase_ba_scene_parity(dev):
     return out
 
 
+# Phase 16: the first H100 reading of the fit (NVIDIA H100 80GB HBM3,
+# 700 W, torch 2.11): first_order after 1 outer iteration and 6 CG
+# iterations, objective 4.702459 (523,131.6 at w = 0), max |w − w_true|
+# 0.0534, peak device memory 1.26 GB.  w is not identifiable (4,096
+# frequencies in [1, 50] make sin(t fᵀ) numerically rank-deficient), so the
+# error is a reading of this trajectory: its bar is twice the first
+# reading, rounded up; a larger error, or an objective more than ten times
+# the first, means the trajectory changed.
+FIT = (2**21, 4096)
+FIT_OBJECTIVE_FIRST = 4.702459
+FIT_OBJECTIVE_FACTOR = 10.0
+FIT_PARAM_ERR_BAR = 0.11
+# an eighth of the Jacobian that is never formed (m·n·4 B = 34.4 GB)
+FIT_PEAK_GB = 4.0
+# Phase 17.  The fit's float64 knife edges (tests/test_torch_separable.py):
+# w is not identifiable and CG stops at eps^0.45, so ncg and x follow the
+# order in which the products are summed; the JAX package's own solves
+# with the products summed in other orders spread ncg over 78-95 (around
+# 80) and x by 4.5e-9.  Bars: twice and ten times that.
+FIT_PARITY = (16_384, 256)
+FIT_PARITY_NCG = 30
+FIT_PARITY_DX = 5e-8
+
+
+def phase_fit(dev):
+    """Phase 16: the huge separable fit at full width; see FIT_*."""
+    from cannoles_tpu_torch.bench_matfree import run_fit
+
+    r = run_fit(*FIT, cg_maxiter=100, device=dev, dtype=torch.float32)
+    r.pop("solution")
+    r["ms_per_product"] = 1e3 * r["device_solve_s"] / r["products"]
+    _log(f"  m={r['m']} n={r['n']} float32 (J would be {r['jac_gb']:.1f} GiB, never formed): {r['status']}, "
+         f"iter {r['iter']}, nfact {r['nfact']}, ncg {r['ncg']}, objective {r['objective']:.6g} (at w = 0 "
+         f"{r['objective0']:.6g}), max |w - w_true| {r['param_err']:.4e}, wall {r['wall_s']:.3f} s, device span "
+         f"{r['device_solve_s']:.3f} s, {r['products']} tiled products ({r['ms_per_product']:.2f} ms each), "
+         f"host syncs {r['host_syncs']}, peak device memory {r['peak_mem_gb']:.3f} GB, busy share "
+         f"{r['busy_share']:.4f} ({r['device_busy_s']:.4f} of a {r['window_wall_s']:.4f} s window, "
+         f"{r['device_events']} device events)")
+    # one product of each kind alone, against the traffic of the tiled
+    # version: every block written by the multiply, read and written by
+    # sin_, read by the matmul (4·m·n·4 bytes)
+    from cannoles_tpu_torch import bench_matfree as bm
+
+    m, n = FIT
+    pb, _ = bm.separable_fit_problem(m, n, dtype=torch.float32, device=dev)
+    t, f = pb.data["t"], pb.data["f"]
+    w, u = torch.ones(n, device=dev), torch.ones(m, device=dev)
+    r["forward_ms"] = _events_ms(lambda: bm._matvec(t, f, w), reps=5)
+    r["transpose_ms"] = _events_ms(lambda: bm._rmatvec(t, f, u), reps=5)
+    r["traffic_bound_ms"] = 1e3 * 4 * m * n * 4 / HBM_BYTES_S
+    del pb, t, f
+    _log(f"  one tiled product alone: forward {r['forward_ms']:.3f} ms, transpose {r['transpose_ms']:.3f} ms; "
+         f"the tiled version's traffic ({4 * m * n * 4 / 1e9:.1f} GB) at 3.35 TB/s: {r['traffic_bound_ms']:.3f} ms")
+    bad = []
+    if r["status"] not in ("first_order", "small_residual"):
+        bad.append(f"status {r['status']}")
+    if not r["objective"] <= min(1e-3 * r["objective0"], FIT_OBJECTIVE_FACTOR * FIT_OBJECTIVE_FIRST):
+        bad.append(f"objective {r['objective']}")
+    if not r["peak_mem_gb"] <= FIT_PEAK_GB:
+        bad.append(f"peak device memory {r['peak_mem_gb']} GB")
+    if not r["param_err"] <= FIT_PARAM_ERR_BAR:
+        bad.append(f"max |w - w_true| {r['param_err']}")
+    if bad:
+        raise AssertionError("separable fit: " + ", ".join(bad))
+    return r
+
+
+def phase_fit_parity(dev):
+    """Phase 17: the fit at FIT_PARITY in float64 on the card and on the
+    CPU, then ``linsolve="cpp"`` against ``"ldlt"`` on the card.
+
+    The fit's named knife edge: after the first outer step the first-order
+    test compares epstol with ‖∇L‖∞, the residual of a CG whose own
+    tolerance bounds it only by eps^0.45·‖JᵀF(0)‖₂, above epstol; there the
+    reading follows the order of summation (2.4e-5 to 2.3e-4 over seven
+    orders on one CPU, epstol 5.4e-5), so one run may stop after step 1 and
+    the other go on.  Where the iteration counts differ, each run must read
+    at most that bound and must have stopped after step 1 exactly when its
+    reading was at most epstol."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, MatrixFreeSolver, nls_problem
+    from cannoles_tpu_torch.bench_matfree import MAX_ITER, MAX_TIME, separable_fit_problem
+
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        pb, _ = separable_fit_problem(*FIT_PARITY, dtype=torch.float64, device=where)
+        s = MatrixFreeSolver(pb, cg_maxiter=100)
+        duals, b0 = [], []
+
+        def trace(_, state, __):
+            duals.append(float(state.normdual[0]))
+            if not b0:
+                b0.append(float(torch.linalg.vector_norm(state.dual[0])))
+
+        t0 = time.perf_counter()
+        st = s.solve(max_time=MAX_TIME, max_iter=MAX_ITER, callback=trace)
+        runs.append((st, duals, time.perf_counter() - t0, float(s.last_state.epstol[0]), s.cg_rtol * b0[0]))
+    (g, dg, tg, epstol, bound), (c, dc, tc, _, _) = runs
+    keys = ("nfact", "ncg", "nlinsolve", "neval_residual")
+    cg = (g.status, g.iter, *(g.solver_specific[k] for k in keys))
+    cc = (c.status, c.iter, *(c.solver_specific[k] for k in keys))
+    dx = float(np.abs(g.solution - c.solution).max())
+    _log(f"  fit {FIT_PARITY[0]}x{FIT_PARITY[1]} f64 (status, iter, nfact, ncg, nlinsolve, neval_residual): "
+         f"card {cg} in {tg:.3f} s, CPU {cc} in {tc:.3f} s, max |x_gpu - x_cpu| {dx:.3e}; ||grad L|| after "
+         f"step 1: card {dg[1]:.4e}, CPU {dc[1]:.4e}, epstol {epstol:.4e}, CG bound {bound:.4e}")
+    if g.status != c.status or g.status not in ("first_order", "small_residual"):
+        raise AssertionError(f"fit card vs CPU: {cg} vs {cc}")
+    if g.iter == c.iter:
+        ok = (cg[2] == cc[2] and cg[4:] == cc[4:] and abs(cg[3] - cc[3]) <= FIT_PARITY_NCG
+              and dx <= FIT_PARITY_DX)
+    else:
+        ok = epstol < bound and all(d[1] <= bound and st.iter == (1 if d[1] <= epstol else 2)
+                                    for st, d in ((g, dg), (c, dc)))
+        _log("  the iteration counts part at the named knife edge (phase_fit_parity's docstring)")
+    if not ok:
+        raise AssertionError(f"fit card vs CPU: {cg} vs {cc}, dx {dx}")
+    out = {"fit": dict(card=cg, cpu=cc, dx=dx, card_s=tg, cpu_s=tc, dual1_card=dg[1], dual1_cpu=dc[1],
+                       epstol=epstol, cg_bound=bound)}
+
+    pb = nls_problem(lambda x: torch.stack([x[0] - 1, 10 * (x[1] - x[0] ** 2)]), [-1.2, 1.0], 2,
+                     lambda x: (x.sum() - 1).reshape(1), [0.0], [0.0], device=dev)
+    via = {}
+    for b in ("ldlt", "cpp"):
+        t0 = time.perf_counter()
+        st = CaNNOLeSSolver(pb, linsolve=b).solve()
+        via[b] = (st, time.perf_counter() - t0)
+    (a, ta), (b, tb) = via["ldlt"], via["cpp"]
+    dxc = float(np.abs(a.solution - b.solution).max())
+    _log(f"  dense solve on the card: ldlt {a.status} iter {a.iter} nfact {a.solver_specific['nfact']} in "
+         f"{ta:.3f} s, cpp {b.status} iter {b.iter} nfact {b.solver_specific['nfact']} in {tb:.3f} s, "
+         f"max |dx| {dxc:.3e}")
+    if (a.status, a.iter, a.solver_specific["nfact"]) != (b.status, b.iter, b.solver_specific["nfact"]) or \
+            dxc > 1e-12:
+        raise AssertionError("linsolve='cpp' on the card differs from 'ldlt'")
+    out["cpp_vs_ldlt"] = dict(iter=b.iter, nfact=b.solver_specific["nfact"], dx=dxc, ldlt_s=ta, cpp_s=tb)
+    return out
+
+
+EXAMPLES = ("torch_01_basics.py", "torch_02_batched_sweep.py", "torch_04_bundle_adjustment.py")
+EXAMPLE_TIMEOUT = 900.0
+
+
+def start_examples():
+    """Phase 18's examples, each in a process of its own on the card, all
+    started at once (one intra-op thread each: the pool's workers share
+    the host's cores); returns {name: (process, output file)} and the
+    times at which each exits, filled in as they do."""
+    import tempfile
+    import threading
+
+    here = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    runs, ends = {}, {}
+    t0 = time.perf_counter()
+    for name in EXAMPLES:
+        out = tempfile.TemporaryFile("w+")
+        p = subprocess.Popen([sys.executable, str(here / "examples" / name)], cwd=here, env=env,
+                             stdout=out, stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=lambda p=p, name=name: (p.wait(), ends.__setitem__(name, time.perf_counter() - t0)),
+                         daemon=True).start()
+        runs[name] = (p, out)
+    return runs, ends
+
+
+def phase_examples(runs, ends):
+    """Phase 18: every example must exit 0; prints their output."""
+    out = {}
+    for name, (p, f) in runs.items():
+        p.wait(timeout=EXAMPLE_TIMEOUT)
+        time.sleep(0.1)  # the waiting thread records the exit time
+        f.seek(0)
+        text = f.read()
+        f.close()
+        _log(f"  {name}: exit {p.returncode} after {ends.get(name, float('nan')):.1f} s")
+        for line in text.splitlines()[-40:]:
+            _log(f"    {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"example {name} exited {p.returncode}")
+        out[name] = dict(exit=p.returncode, wall_s=ends.get(name))
+    return out
+
+
+def _stop(runs):
+    for p, f in runs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        f.close()
+
+
 def measure(root: str) -> int:
     """``--measure``: phase 4, then phase 3 and phase 7's times, nothing
     else, for the package under ``root``; prints one JSON line."""
@@ -1317,16 +1533,28 @@ def main() -> int:
         parity = phase_ba_scene_parity(dev)
         return dict(scene=scene, parity=parity, wall_s=time.perf_counter() - t0)
 
-    pool_rows, pool_wall, large = battery_pool(workers, large_ba)
-    _log(f"  phases 14-15 took {large['wall_s']:.3f} s beside the pool")
-    _phase("phase 11: the battery's uniform pass in float64, card vs CPU")
-    parity11 = phase_battery_parity(dev, pool_rows)
-    _phase("phase 12: the battery with its rescues in float32 on the card")
-    battery12 = phase_battery(dev, pool_rows, pool_wall)
-    fl.LAUNCHES = 0
-    _phase("phase 13: vsolve(max_time=...) on the headline family")
-    deadline = phase_deadline(dev, head_lanes)
-    deadline_launches = fl.LAUNCHES
+    # phase 18's examples run beside the pool: their solves are host-bound
+    examples, example_ends = start_examples()
+    _log(f"  phase 18's examples started beside the pool: {', '.join(EXAMPLES)}")
+    try:
+        pool_rows, pool_wall, large = battery_pool(workers, large_ba)
+        _log(f"  phases 14-15 took {large['wall_s']:.3f} s beside the pool")
+        _phase("phase 11: the battery's uniform pass in float64, card vs CPU")
+        parity11 = phase_battery_parity(dev, pool_rows)
+        _phase("phase 12: the battery with its rescues in float32 on the card")
+        battery12 = phase_battery(dev, pool_rows, pool_wall)
+        fl.LAUNCHES = 0
+        _phase("phase 13: vsolve(max_time=...) on the headline family")
+        deadline = phase_deadline(dev, head_lanes)
+        deadline_launches = fl.LAUNCHES
+        _phase("phase 16: the huge separable fit (m=2,097,152, n=4,096, float32) through MatrixFreeSolver")
+        fit = phase_fit(dev)
+        _phase("phase 17: the fit in float64 card vs CPU, and linsolve='cpp' vs 'ldlt' on the card")
+        fit_parity = phase_fit_parity(dev)
+        _phase("phase 18: the examples on the card")
+        examples_out = phase_examples(examples, example_ends)
+    finally:
+        _stop(examples)
 
     head_t, ba_t, rescue_t = (times[f"N={N} B={B}"] for N, B in ((5, 16384), (73, 256), rescue))
     _log(smi)
@@ -1378,7 +1606,8 @@ def main() -> int:
         "shape": "f64 nb=256 B=1 (one block)",
         "blocked_route": times7["blocked"],
         "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor: the block kernel + torch.matmul)",
-    }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large}))
+    }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
+        "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -345,3 +345,54 @@ def test_checkpoint_saved_on_card_loads_on_cpu(cuda, tmp_path):
     pc, _ = large_bundle_adjustment(3, 12, noise=0.0, seed=0, dtype=torch.float64, device="cpu")
     st = SchurBASolver(pc, 3, 12).solve(resume_from=back, atol=1e-14, rtol=0.0)
     assert st.status in ("first_order", "small_residual")
+
+
+def test_cpp_on_card_tensors_matches_cpu_tensors(cuda):
+    """linsolve='cpp' takes CUDA tensors through an explicit host round
+    trip: the same x and flags as from CPU tensors, back on the card; a
+    dense solve with it on the card equals 'ldlt' on the card."""
+    from cannoles_tpu_torch import nls_problem
+    from cannoles_tpu_torch.ops.cpp_ldlt import cpp_ldlt_factor_solve
+
+    W, rhs, n1 = quasi_definite(9, 12, seed=4)
+    for dt in (torch.float64, torch.float32):
+        Wc, rc = torch.as_tensor(W, dtype=dt), torch.as_tensor(rhs, dtype=dt)
+        x_cpu, ok_cpu = cpp_ldlt_factor_solve(Wc, rc, n1, 1e-13)
+        x_gpu, ok_gpu = cpp_ldlt_factor_solve(Wc.to(cuda), rc.to(cuda), n1, 1e-13)
+        assert x_gpu.device.type == ok_gpu.device.type == "cuda" and x_gpu.dtype == dt
+        assert torch.equal(x_gpu.cpu(), x_cpu) and torch.equal(ok_gpu.cpu(), ok_cpu)
+    pb = nls_problem(lambda x: torch.stack([x[0] - 1, 10 * (x[1] - x[0] ** 2)]), [-1.2, 1.0], 2,
+                     lambda x: (x.sum() - 1).reshape(1), [0.0], [0.0])
+    a, b = (CaNNOLeSSolver(pb, linsolve=k).solve() for k in ("ldlt", "cpp"))
+    assert (a.status, a.iter, a.solver_specific["nfact"]) == (b.status, b.iter, b.solver_specific["nfact"])
+    assert np.abs(a.solution - b.solution).max() <= 1e-12
+
+
+def test_separable_fit_on_card_matches_cpu(cuda):
+    """The huge separable fit's model at (16,384, 256) in float64: the same
+    status on the card and on the CPU; the same counters, ncg within 30
+    and x within 5e-8 (the spread of the JAX package's own solves with the
+    products summed in other orders), or, where the iteration counts part,
+    the named knife edge of tests/test_torch_separable.py: each run stopped
+    after step 1 exactly when its ‖∇L‖ there was at most epstol."""
+    from cannoles_tpu_torch import MatrixFreeSolver
+    from cannoles_tpu_torch.bench_matfree import separable_fit_problem
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pb, _ = separable_fit_problem(16_384, 256, dtype=torch.float64, device=dev)
+        duals = []
+        s = MatrixFreeSolver(pb, cg_maxiter=100)
+        st = s.solve(max_time=600.0, max_iter=30,
+                     callback=lambda p, state, stats: duals.append(float(state.normdual[0])))
+        out[dev.type] = (st, duals, float(s.last_state.epstol[0]))
+    (g, dg, epstol), (c, dc, _) = out["cuda"], out["cpu"]
+    assert g.status == c.status == "first_order"
+    if g.iter == c.iter:
+        for k in ("nfact", "nlinsolve", "neval_residual"):
+            assert g.solver_specific[k] == c.solver_specific[k], k
+        assert abs(g.solver_specific["ncg"] - c.solver_specific["ncg"]) <= 30
+        assert np.abs(g.solution - c.solution).max() <= 5e-8
+    else:
+        for st, d in ((g, dg), (c, dc)):
+            assert st.iter == (1 if d[1] <= epstol else 2), (st.iter, d[1], epstol)

@@ -145,12 +145,16 @@ def test_callback_user_stop_and_max_time():
 
 
 def test_out_of_slice_options_raise():
-    """linsolve='cpp' is still out of the port; resume_from is in it now
-    (tests/test_torch_checkpoint.py), so here it must continue a solve to
-    the straight-through result."""
+    """linsolve='cpp' and resume_from were once out of the port; both are in
+    it now (tests/test_torch_cpp_ldlt.py, tests/test_torch_checkpoint.py).
+    'cpp' must build and solve to the 'ldlt' result, and resume_from must
+    continue a solve to the straight-through result."""
     _, pt = make("pb")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.CaNNOLeSSolver(pt, linsolve="cpp")
+    via_cpp = tc.CaNNOLeSSolver(pt, linsolve="cpp").solve()
+    via_ldlt = tc.CaNNOLeSSolver(pt, linsolve="ldlt").solve()
+    assert (via_cpp.status, via_cpp.iter) == (via_ldlt.status, via_ldlt.iter)
+    assert via_cpp.solver_specific["nfact"] == via_ldlt.solver_specific["nfact"]
+    np.testing.assert_allclose(via_cpp.solution, via_ldlt.solution, rtol=0, atol=1e-12)
     s = tc.CaNNOLeSSolver(pt)
     s.solve(max_iter=1)
     resumed = s.solve(resume_from=s.last_state)
