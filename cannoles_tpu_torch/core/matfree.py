@@ -23,6 +23,13 @@ iteration, at up to ``CG_CHECK − 1`` wasted products per solve.
 ``precond='jacobi'`` draws the JAX package's Hutchinson probes bit for bit
 (``utils/prng.py``): float64 solvers take JAX's 64-bit draw (its float64
 runs need ``jax_enable_x64``), float32 solvers its 32-bit draw.
+
+``MatrixFreeSolver(problem, mesh=row_mesh)`` is the row-sharded run: the
+solver holds this rank's row block (``parallel.mesh.row_block``) and
+all-reduces every product Jᵀw and every sum and maximum over the residual
+axis, as the dense solver does (its ``_rsum``/``_rmax``/``_rany``); CG and
+every n- or p-vector stay replicated.  In the JAX package the same run
+follows from where the data lies.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..params import F_BLOWUP, MAX_DLAMBDA, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_2, norm_inf
 from ..utils.prng import rademacher
+from ..parallel.mesh import row_block
 from .solver import CaNNOLeSSolver, RunConfig, _add_batch_axis, _BudgetSpent, _sel
 from .status import MSG, ExecutionStats, Status, get_status_code, status_name
 
@@ -179,7 +187,9 @@ class MatrixFreeSolver:
       attempt, e.g. :func:`cannoles_tpu_torch.core.ba.ba_block_jacobi`;
     * ``use_initial_multiplier``, ``always_accept_extrapolation``;
     * ``multiplier_refit``: a CGLS multiplier refit after every outer
-      iteration, kept where it lowers the dual norm.
+      iteration, kept where it lowers the dual norm;
+    * ``mesh``: a row mesh (see the module docstring); not with a callable
+      ``precond``, which would see one rank's rows.
 
     ``dtype``/``device`` default to those of ``problem.x0``."""
 
@@ -198,6 +208,7 @@ class MatrixFreeSolver:
         params: Optional[Params] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        mesh=None,
     ):
         if method not in ("gauss_newton", "lm", "Newton_noFHess", "LM"):
             raise ValueError(
@@ -206,6 +217,11 @@ class MatrixFreeSolver:
                 f"method={method!r}"
             )
         self.method = "lm" if method in ("lm", "LM") else "gauss_newton"
+        self.mesh = mesh
+        if mesh is not None:
+            if callable(precond):
+                raise ValueError("a row-sharded MatrixFreeSolver takes precond='none' or 'jacobi'")
+            problem = row_block(problem, mesh)
         self.problem = problem
         self.dtype = problem.x0.dtype if dtype is None else dtype
         if not self.dtype.is_floating_point:
@@ -230,20 +246,18 @@ class MatrixFreeSolver:
         self.host_syncs = 0
         self._deadline: Optional[float] = None
 
-    def _any(self, mask) -> bool:
-        self.host_syncs += 1
-        hit = bool(mask.any())
-        if self._deadline is not None and time.time() > self._deadline:
-            raise _BudgetSpent
-        return hit
-
+    _any = CaNNOLeSSolver._any
+    _agree = CaNNOLeSSolver._agree
     make_config = CaNNOLeSSolver.make_config
     _dual_scaling = CaNNOLeSSolver._dual_scaling
+    _rsum = CaNNOLeSSolver._rsum
+    _rmax = CaNNOLeSSolver._rmax
+    _rany = CaNNOLeSSolver._rany
 
     # ---------------- operator pieces (all matrix-free) ----------------
     def _dual_at(self, x, r, lam, data):
         pb = self.problem
-        g = pb.jtprod_res(x, r, data)
+        g = self._rsum(pb.jtprod_res(x, r, data))
         if pb.ncon > 0:
             g = g - pb.jtprod_cons(x, lam, data)
         return g
@@ -275,7 +289,7 @@ class MatrixFreeSolver:
 
     def _rhs(self, s: MFState):
         pb = self.problem
-        bx = s.dual + pb.jtprod_res(s.x, s.prim_r, s.data)
+        bx = s.dual + self._rsum(pb.jtprod_res(s.x, s.prim_r, s.data))
         if pb.ncon > 0:
             bx = bx + pb.jtprod_cons(s.x, s.cx, s.data) / s.delta[:, None]
         return bx
@@ -293,7 +307,7 @@ class MatrixFreeSolver:
         pull = pb.res_pullback(x, data)
 
         def resvec(v):
-            return pull(pb.jprod_res(x, v, data))
+            return self._rsum(pull(pb.jprod_res(x, v, data)))
 
         def matvec(v):
             out = rho[:, None] * v + resvec(v)
@@ -367,7 +381,7 @@ class MatrixFreeSolver:
         return c.sol, c.success, c.rho, rho_old_new, c.nfact, c.ncg
 
     def _merit(self, Fx, cx, lam, eta):
-        val = 0.5 * _vdot(Fx, Fx)
+        val = 0.5 * self._rsum(_vdot(Fx, Fx))
         if self.problem.ncon > 0:
             val = val - _vdot(lam, cx) + 0.5 * eta * _vdot(cx, cx)
         return val
@@ -382,18 +396,18 @@ class MatrixFreeSolver:
         i32 = dict(dtype=torch.int32, device=x.device)
 
         Fx = pb.F(x, data)
-        broken = check_nan_inf(Fx)
-        fx = 0.5 * _vdot(Fx, Fx)
+        broken = self._rany(check_nan_inf(Fx))
+        fx = 0.5 * self._rsum(_vdot(Fx, Fx))
         cx = pb.c_shifted(x, data)
         r = Fx
-        Jxtr = pb.jtprod_res(x, r, data)
+        Jxtr = self._rsum(pb.jtprod_res(x, r, data))
         if p > 0 and not self.use_initial_multiplier:
             lam_ls = self._lam_cgls(x, Jxtr, data, itmax=min(n + p, 200))
             lam = _sel(norm_2(lam_ls) == 0, torch.ones_like(lam_ls), lam_ls)
         dual = Jxtr - pb.jtprod_cons(x, lam, data) if p > 0 else Jxtr
         prim_r = Fx - r
         normdual = norm_inf(dual)
-        normprimal = torch.maximum(norm_inf(prim_r), norm_inf(cx))
+        normprimal = torch.maximum(self._rmax(norm_inf(prim_r)), norm_inf(cx))
 
         epsF = cfg.Fatol + cfg.Frtol * 2 * torch.sqrt(fx)
         epstol = cfg.atol + cfg.rtol * normdual
@@ -461,7 +475,7 @@ class MatrixFreeSolver:
             s.epsk,
         )
         eta_ls = 1.0 / s.delta if p > 0 else s.eta
-        JxtFx = pb.jtprod_res(s.x, s.Fx, data)
+        JxtFx = self._rsum(pb.jtprod_res(s.x, s.Fx, data))
         Dphi = _vdot(JxtFx, dx)
         if p > 0:
             w = s.lam - s.cx / s.delta[:, None]
@@ -522,18 +536,18 @@ class MatrixFreeSolver:
         damp = s.damp
         if self.method == "lm":
             # the Ared/Pred ratio steers the applied Levenberg damping
-            nF2 = _vdot(s.Fx, s.Fx)
-            Ared = nF2 - _vdot(Ft, Ft)
+            nF2 = self._rsum(_vdot(s.Fx, s.Fx))
+            Ared = nF2 - self._rsum(_vdot(Ft, Ft))
             step_a = torch.where(alpha == 0, torch.ones_like(alpha), alpha)
             pred_vec = s.Fx + step_a[:, None] * pb.jprod_res(s.x, s.dx, data)
-            Pred = nF2 - _vdot(pred_vec, pred_vec)
+            Pred = nF2 - self._rsum(_vdot(pred_vec, pred_vec))
             ratio = Ared / Pred
             damp = torch.where(ratio > 0.75, damp / 10, torch.where(ratio < 0.25, damp * 10, damp))
 
         prim_r_hat = Ft - rt
         dual_hat = self._dual_at(xt, rt, lamt, data)
         ndh = norm_inf(dual_hat)
-        nph = torch.maximum(norm_inf(prim_r_hat), norm_inf(ct))
+        nph = torch.maximum(self._rmax(norm_inf(prim_r_hat)), norm_inf(ct))
         ch = ndh + nph
         good = (ch <= 0.99 * combined + epsk) & (~ls_broken)
         accept = ((s.inner_iter > 0) | self.always_accept_extrapolation | good) & (~ls_broken)
@@ -555,7 +569,7 @@ class MatrixFreeSolver:
         tired = ((neF + nec) > cfg.max_eval) | (inner_n > cfg.max_inner)
         s_n = s._replace(
             x=x_n, r=r_n, Fx=_sel(accept, Ft, s.Fx),
-            fx=torch.where(accept, 0.5 * _vdot(Ft, Ft), s.fx), cx=_sel(accept, ct, s.cx),
+            fx=torch.where(accept, 0.5 * self._rsum(_vdot(Ft, Ft)), s.fx), cx=_sel(accept, ct, s.cx),
             lam=_sel(good, lamt, s.lam), dual=dual_n,
             prim_r=_sel(accept, prim_r_hat, s.prim_r),
             dlam=dlam, eta=eta, epsk=epsk, alpha=alpha, damp=damp, delta=delta_n,
@@ -600,7 +614,7 @@ class MatrixFreeSolver:
 
         if self.multiplier_refit and p > 0:
             # the JAX engine keeps the refit wherever it lowers the dual norm
-            lam_fit = self._lam_cgls(s.x, pb.jtprod_res(s.x, s.r, data), data,
+            lam_fit = self._lam_cgls(s.x, self._rsum(pb.jtprod_res(s.x, s.r, data)), data,
                                      itmax=min(n + p, 200), active=active)
             dual_fit = self._dual_at(s.x, s.r, lam_fit, data)
             nd_fit = norm_inf(dual_fit)
@@ -615,7 +629,7 @@ class MatrixFreeSolver:
         if self._any(recheck):
             # small-residual optimality re-check, with operators
             r = s.Fx
-            Jxtr = pb.jtprod_res(s.x, r, data)
+            Jxtr = self._rsum(pb.jtprod_res(s.x, r, data))
             if p > 0:
                 lam = self._lam_cgls(s.x, Jxtr, data, itmax=min(n + p, 200), active=recheck)
                 dual = Jxtr - pb.jtprod_cons(s.x, lam, data)
@@ -674,8 +688,7 @@ class MatrixFreeSolver:
             lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
             state = self._init_state(x0, lam0, cfg, _add_batch_axis(pb.data, self.device))
         self._sync(state, stats, time.time() - t0)
-        if callback is not None:
-            callback(pb, state, stats)
+        self._callback(callback, state, stats)
         try:
             while stats.status == "unknown":
                 try:
@@ -686,7 +699,8 @@ class MatrixFreeSolver:
                     break
                 elapsed = time.time() - t0
                 self._sync(state, stats, elapsed)
-                if stats.status == "unknown" and elapsed > max_time:
+                # on a row mesh the ranks stop together (``_agree``)
+                if self._agree(stats.status == "unknown" and elapsed > max_time)[0]:
                     stats.status = status_name(Status.MAX_TIME)
                 if verbose > 0 and stats.iter % max(verbose, 1) == 0:
                     print(
@@ -694,8 +708,7 @@ class MatrixFreeSolver:
                         f"‖∇L‖={stats.dual_feas:.2e} ‖c‖={stats.primal_feas:.2e} "
                         f"cg_iters={int(state.ncg[0])}"
                     )
-                if callback is not None:
-                    callback(pb, state, stats)
+                self._callback(callback, state, stats)
                 self._deadline = t0 + max_time
         finally:
             self._deadline = None
@@ -708,6 +721,14 @@ class MatrixFreeSolver:
         pb.counters.neval_residual += int(state.neval_F[0])
         pb.counters.neval_cons += int(state.neval_c[0])
         return stats
+
+    def _callback(self, callback, s: MFState, stats: ExecutionStats):
+        """The callback's turn; a 'user' stop on one rank of a row mesh
+        stops every rank."""
+        if callback is not None:
+            callback(self.problem, s, stats)
+        if self._agree(stats.status == "user")[0]:
+            stats.status = "user"
 
     def _sync(self, s: MFState, stats: ExecutionStats, elapsed: float):
         if stats.status != "user":

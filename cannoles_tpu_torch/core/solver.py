@@ -22,6 +22,13 @@ or above it.
 ``linsolve='cpp'`` is the host C++ LDLᵀ of ``ops/cpp_ldlt.py`` (a host
 round trip per attempt, as the JAX package's ``pure_callback``).
 
+``mesh=`` (a row mesh, ``parallel/mesh.py``) makes the solver hold one
+rank's block of the residual rows: every sum and maximum over the residual
+axis goes through ``_rsum``/``_rmax``/``_rany``, which all-reduce over the
+mesh (the identity without one), where the JAX package lets GSPMD insert
+the all-reduces.  x, λ, the condensed system and every n- or p-vector stay
+replicated, bit for bit equal on every rank, so every host decision agrees.
+
 The XLA/TPU seams ``_scalar_mode``, ``_reuse_trial_linearization``,
 ``_descent_rescue_eigh`` and ``matmul_precision`` are not ported: float32
 matmuls run in full float32 (TF32 is switched off explicitly, see
@@ -42,6 +49,7 @@ from ..ops.cgls import cgls
 from ..ops.cpp_ldlt import cpp_ldlt_factor_solve
 from ..ops.fused_ldlt import fused_ldlt_solve
 from ..ops.ldlt import eigh_factor, eigh_solve, inertia_success, ldlt_factor, ldlt_solve
+from ..parallel.mesh import row_block
 from ..params import F_BLOWUP, MAX_DLAMBDA, SMAX, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_1, norm_2, norm_inf
@@ -212,7 +220,9 @@ class CaNNOLeSSolver:
     solve many batches with different starts, data and tolerances.
 
     ``dtype``/``device`` default to those of ``problem.x0``; every tensor
-    the solver makes lives there."""
+    the solver makes lives there.  With a row ``mesh`` (condensed KKT only)
+    ``problem`` is the whole problem and ``self.problem`` this rank's row
+    block of it (``parallel.mesh.row_block``), on ``mesh.device``."""
 
     def __init__(
         self,
@@ -234,6 +244,7 @@ class CaNNOLeSSolver:
         pallas_chol_min: Optional[int] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        mesh=None,
     ):
         self.method = _check_available_method(method)
         linsolve = _LINSOLVE_ALIASES.get(linsolve, linsolve)
@@ -248,6 +259,12 @@ class CaNNOLeSSolver:
             )
         self.linsolve = linsolve
         self.kkt = kkt
+        self._dims = (problem.nvar, problem.nequ, problem.ncon)  # the whole problem's
+        self.mesh = mesh
+        if mesh is not None:
+            if kkt != "condensed":
+                raise ValueError("row-sharded solve requires the condensed KKT backend")
+            problem = row_block(problem, mesh)
         self.problem = problem
         self.use_initial_multiplier = bool(use_initial_multiplier)
         self.always_accept_extrapolation = bool(always_accept_extrapolation)
@@ -300,9 +317,32 @@ class CaNNOLeSSolver:
     def _any(self, mask) -> bool:
         self.host_syncs += 1
         hit = bool(mask.any())
-        if self._deadline is not None and time.time() > self._deadline:
-            raise _BudgetSpent
+        if self._deadline is not None:
+            # on a row mesh every rank leaves the step at the same sync
+            hit, spent = self._agree(hit, time.time() > self._deadline)
+            if spent:
+                raise _BudgetSpent
         return hit
+
+    def _agree(self, *flags: bool):
+        """Host decisions that the ranks of a row mesh take together: each
+        flag comes back true on every rank where it is true on any (as given
+        without a mesh).  For what each rank reads on its own clock or from
+        its own callback; the replicated state needs no agreement."""
+        if self.mesh is None:
+            return flags
+        return tuple(self.mesh.any(torch.tensor(flags, device=self.mesh.device)).tolist())
+
+    # reductions over the residual axis: over every rank's rows on a row
+    # mesh, the identity without one (the argument is a fresh tensor)
+    def _rsum(self, t):
+        return t if self.mesh is None else self.mesh.sum(t)
+
+    def _rmax(self, t):
+        return t if self.mesh is None else self.mesh.max(t)
+
+    def _rany(self, t):
+        return t if self.mesh is None else self.mesh.any(t)
 
     def reset(self, problem: Optional[NLSProblem] = None) -> "CaNNOLeSSolver":
         """Re-solve support (the reference's SolverCore.reset!): with no
@@ -311,12 +351,13 @@ class CaNNOLeSSolver:
         dtype and device wired to the new problem."""
         if problem is None:
             return self
-        if (problem.nvar, problem.nequ, problem.ncon) != (
-            self.problem.nvar,
-            self.problem.nequ,
-            self.problem.ncon,
-        ):
+        if (problem.nvar, problem.nequ, problem.ncon) != self._dims:
             raise ValueError("reset requires a problem with identical dimensions")
+        return self._rebuilt(problem, self.mesh)
+
+    def _rebuilt(self, problem: NLSProblem, mesh) -> "CaNNOLeSSolver":
+        """A solver with the same options and dtype on ``problem`` and
+        ``mesh`` (on ``mesh.device`` when there is one)."""
         return CaNNOLeSSolver(
             problem,
             method=self.method,
@@ -333,7 +374,8 @@ class CaNNOLeSSolver:
             descent_rescue=self.descent_rescue,
             pallas_chol_min=self.pallas_chol_min,
             dtype=self.dtype,
-            device=self.device,
+            device=self.device if mesh is None else None,
+            mesh=mesh,
         )
 
     # ------------------------------------------------------------------
@@ -346,16 +388,16 @@ class CaNNOLeSSolver:
         pb = self.problem
         n = pb.nvar
         if self.method in ("newton", "newton_vanishing"):
-            Hres = pb.hess_res(x, r, data)
+            Hres = self._rsum(pb.hess_res(x, r, data))
             if self.method == "newton_vanishing":
-                Hres = _sel(_vdot(Fx, Fx) > 1e-8, Hres, torch.zeros_like(Hres))
+                Hres = _sel(self._rsum(_vdot(Fx, Fx)) > 1e-8, Hres, torch.zeros_like(Hres))
         else:
             Hres = x.new_zeros((x.shape[0], n, n))
         if pb.ncon > 0:
             Hres = Hres - pb.hess_cons(x, lam, data)
         if self.method == "lm" and self.lm_damping:
             scale = torch.clamp(damp, 1e-10, 1e8)
-            Hres = Hres + torch.diag_embed(scale[:, None] * (JxT * JxT).sum(-1))
+            Hres = Hres + torch.diag_embed(scale[:, None] * self._rsum((JxT * JxT).sum(-1)))
         return Hres
 
     def _assemble_kkt(self, H, JxT, Jcx, delta):
@@ -383,7 +425,7 @@ class CaNNOLeSSolver:
         the residual block is eliminated through its -I block, which keeps
         the inertia decisions.  JᵀJ is a full-precision batched matmul."""
         p = self.problem.ncon
-        M = H + JxT @ JxT.transpose(-2, -1)
+        M = H + self._rsum(JxT @ JxT.transpose(-2, -1))
         if p == 0:
             return M
         Ip = -delta[:, None, None] * torch.eye(p, dtype=H.dtype, device=H.device)
@@ -557,7 +599,7 @@ class CaNNOLeSSolver:
 
     def _merit(self, Fx, cx, lam, eta):
         """Augmented-Lagrangian merit ϕ = ½‖F‖² − λᵀc + (η/2)‖c‖²."""
-        val = 0.5 * _vdot(Fx, Fx)
+        val = 0.5 * self._rsum(_vdot(Fx, Fx))
         if self.problem.ncon > 0:
             val = val - _vdot(lam, cx) + 0.5 * eta * _vdot(cx, cx)
         return val
@@ -574,7 +616,7 @@ class CaNNOLeSSolver:
         current point and recompute the KKT residuals."""
         pb = self.problem
         r = s.Fx
-        Jxtr = _mv(s.JxT, r)
+        Jxtr = self._rsum(_mv(s.JxT, r))
         if pb.ncon > 0:
             JcT = s.Jcx.transpose(-2, -1)
             lam = cgls(JcT, Jxtr)
@@ -609,13 +651,13 @@ class CaNNOLeSSolver:
         B = x.shape[0]
 
         Fx, JxT = pb.F_and_Jt(x, data)
-        broken = check_nan_inf(Fx)
-        fx = 0.5 * _vdot(Fx, Fx)
+        broken = self._rany(check_nan_inf(Fx))
+        fx = 0.5 * self._rsum(_vdot(Fx, Fx))
         cx = pb.c_shifted(x, data)
         Jcx = pb.Jc(x, data)
         i32 = dict(dtype=torch.int32, device=x.device)
         r = Fx
-        Jxtr = _mv(JxT, r)
+        Jxtr = self._rsum(_mv(JxT, r))
         JcT = Jcx.transpose(-2, -1)
         if not self.use_initial_multiplier and p > 0:
             lam_ls = cgls(JcT, Jxtr)
@@ -624,7 +666,7 @@ class CaNNOLeSSolver:
         dual = Jxtr - (_mv(JcT, lam) if p > 0 else torch.zeros_like(Jxtr))
         primal = torch.cat([Fx - r, cx], -1)
         normdual = norm_inf(dual)
-        normprimal = norm_inf(primal)
+        normprimal = self._rmax(norm_inf(primal))
 
         epsF = cfg.Fatol + cfg.Frtol * 2 * torch.sqrt(fx)
         epstol = cfg.atol + cfg.rtol * normdual
@@ -680,7 +722,7 @@ class CaNNOLeSSolver:
         if self.descent_rescue:
             # the same slope as trial_step's Dϕ; extrapolation iterations
             # (inner_iter == 0) never require descent
-            JxtFx = _mv(s.JxT, s.Fx)
+            JxtFx = self._rsum(_mv(s.JxT, s.Fx))
             Jcw = _mv(s.Jcx.transpose(-2, -1), s.lam - s.cx / s.delta[:, None]) if p > 0 else None
 
             def bad_direction(d):
@@ -692,7 +734,7 @@ class CaNNOLeSSolver:
         if self.kkt == "condensed":
             rhs_r = s.primal[:, :m]
             K0 = self._assemble_condensed(H, s.JxT, s.Jcx, s.delta)
-            b = torch.cat([s.dual + _mv(s.JxT, rhs_r), s.primal[:, m:]], -1)
+            b = torch.cat([s.dual + self._rsum(_mv(s.JxT, rhs_r)), s.primal[:, m:]], -1)
             z, success, rho, rho_old, nfacti = self._newton_system(
                 K0, b, s.rho_old, act, bad_direction
             )
@@ -706,7 +748,7 @@ class CaNNOLeSSolver:
             d, success, rho, rho_old, nfacti = self._newton_system(
                 W0, rhs, s.rho_old, act, bad_direction
             )
-        bad_d = check_nan_inf(d)
+        bad_d = self._rany(check_nan_inf(d))
         blowup = s.fx >= min(F_BLOWUP, float(torch.finfo(self.dtype).max))
         over = rho > pr.rho_max
         broken = over | (~success) | bad_d | blowup
@@ -742,7 +784,7 @@ class CaNNOLeSSolver:
             s.epsk,
         )
         eta_ls = 1.0 / s.delta if p > 0 else s.eta
-        JxtFx = _mv(s.JxT, s.Fx)
+        JxtFx = self._rsum(_mv(s.JxT, s.Fx))
         Dphi = _vdot(JxtFx, dx)
         if p > 0:
             w = s.lam - s.cx / s.delta[:, None]
@@ -810,21 +852,21 @@ class CaNNOLeSSolver:
         damp = s.damp
         if self.method == "lm":
             # Ared/Pred bookkeeping; steers the KKT only with lm_damping
-            nF2 = _vdot(s.Fx, s.Fx)
-            Ared = nF2 - _vdot(Ft, Ft)
+            nF2 = self._rsum(_vdot(s.Fx, s.Fx))
+            Ared = nF2 - self._rsum(_vdot(Ft, Ft))
             step_a = torch.where(alpha == 0, torch.ones_like(alpha), alpha)
             pred_vec = s.Fx + step_a[:, None] * (s.d[:, :n].unsqueeze(-2) @ s.JxT).squeeze(-2)
-            Pred = nF2 - _vdot(pred_vec, pred_vec)
+            Pred = nF2 - self._rsum(_vdot(pred_vec, pred_vec))
             ratio = Ared / Pred
             damp = torch.where(ratio > 0.75, damp / 10, torch.where(ratio < 0.25, damp * 10, damp))
 
         JtT = pb.Jt(xt, s.data)
         Jct = pb.Jc(xt, s.data)
-        Jxtr = _mv(JtT, rt)
+        Jxtr = self._rsum(_mv(JtT, rt))
         dual_hat = Jxtr - (_mv(Jct.transpose(-2, -1), lamt) if p > 0 else torch.zeros_like(Jxtr))
         primal_hat = torch.cat([Ft - rt, ct], -1)
         ndh = norm_inf(dual_hat)
-        nph = norm_inf(primal_hat)
+        nph = self._rmax(norm_inf(primal_hat))
         ch = ndh + nph
 
         good = (ch <= 0.99 * combined + epsk) & (~ls_broken)
@@ -833,13 +875,13 @@ class CaNNOLeSSolver:
         x_n = _sel(accept, xt, s.x)
         r_n = _sel(accept, rt, s.r)
         Fx_n = _sel(accept, Ft, s.Fx)
-        fx_n = torch.where(accept, 0.5 * _vdot(Ft, Ft), s.fx)
+        fx_n = torch.where(accept, 0.5 * self._rsum(_vdot(Ft, Ft)), s.fx)
         cx_n = _sel(accept, ct, s.cx)
         JxT_n = _sel(accept, JtT, s.JxT)
         Jcx_n = _sel(accept, Jct, s.Jcx)
         lam_n = _sel(good, lamt, s.lam)
         # on a rejected λ, recompute dual at the (possibly updated) iterate
-        dual_re = _mv(JxT_n, r_n) - (
+        dual_re = self._rsum(_mv(JxT_n, r_n)) - (
             _mv(Jcx_n.transpose(-2, -1), s.lam) if p > 0 else torch.zeros_like(s.x)
         )
         dual_n = _sel(good, dual_hat, dual_re)
@@ -915,7 +957,7 @@ class CaNNOLeSSolver:
             # per-outer CGLS multiplier refit, kept only where it strictly
             # lowers the dual norm
             JcT = s.Jcx.transpose(-2, -1)
-            Jxtr_f = _mv(s.JxT, s.r)
+            Jxtr_f = self._rsum(_mv(s.JxT, s.r))
             lam_fit = cgls(JcT, Jxtr_f)
             dual_fit = Jxtr_f - _mv(JcT, lam_fit)
             nd_fit = norm_inf(dual_fit)
@@ -1047,9 +1089,7 @@ class CaNNOLeSSolver:
         self._sync_stats(state, stats, time.time() - t0)
         if verbose > 0:
             self._log_header()
-            self._log_row(state, stats)
-        if callback is not None:
-            callback(pb, state, stats)
+        self._between_steps(state, stats, callback, verbose > 0, False)
         done = stats.status != "unknown"
 
         try:
@@ -1062,12 +1102,8 @@ class CaNNOLeSSolver:
                     break
                 elapsed = time.time() - t0
                 self._sync_stats(state, stats, elapsed)
-                if stats.status == "unknown" and elapsed > max_time:
-                    stats.status = status_name(Status.MAX_TIME)
-                if verbose > 0 and stats.iter % max(verbose, 1) == 0:
-                    self._log_row(state, stats)
-                if callback is not None:
-                    callback(pb, state, stats)
+                self._between_steps(state, stats, callback, verbose > 0 and stats.iter % verbose == 0,
+                                    elapsed > max_time)
                 done = stats.status != "unknown"
                 self._deadline = t0 + max_time
         finally:
@@ -1078,6 +1114,22 @@ class CaNNOLeSSolver:
         pb.counters.neval_residual += int(state.neval_F[0])
         pb.counters.neval_cons += int(state.neval_c[0])
         return stats
+
+    def _between_steps(self, s: SolverState, stats: ExecutionStats, callback, log: bool, over: bool):
+        """The host's turn after an outer step: the wall-clock budget
+        (``over``: this rank's clock is past it), the log row and the
+        callback.  On a row mesh each decision is the ranks' together: all
+        stop when one rank's budget is spent or its callback sets 'user', and
+        all take part in the log row's reduction when one rank logs."""
+        over, any_log = self._agree(stats.status == "unknown" and over, log)
+        if over:
+            stats.status = status_name(Status.MAX_TIME)
+        if any_log:
+            self._log_row(s, stats, show=log)
+        if callback is not None:
+            callback(self.problem, s, stats)
+        if self._agree(stats.status == "user")[0]:
+            stats.status = "user"
 
     def _sync_stats(self, s: SolverState, stats: ExecutionStats, elapsed: float):
         code = int(s.status[0])
@@ -1107,10 +1159,13 @@ class CaNNOLeSSolver:
         cols = ["iter", "#F+c", "f(x)", "‖∇L‖", "‖Fx-r‖", "‖c(x)‖", "α", "η", "ρ", "δ", "in_it", "nbk"]
         print("  ".join(f"{c:>9s}" for c in cols))
 
-    def _log_row(self, s: SolverState, stats: ExecutionStats):
+    def _log_row(self, s: SolverState, stats: ExecutionStats, show: bool = True):
         m = self.problem.nequ
-        pf = float(norm_2(s.primal[:, :m])[0])
+        pr = s.primal[:, :m]
+        pf = float(torch.sqrt(self._rsum(_vdot(pr, pr)))[0])
         cf = float(norm_2(s.primal[:, m:])[0]) if self.problem.ncon > 0 else 0.0
+        if not show:
+            return
         print(
             f"{int(s.iter[0]):9d}  {int(s.neval_F[0] + s.neval_c[0]):9d}  {float(s.fx[0]):9.2e}  "
             f"{float(s.normdual[0]):9.2e}  {pf:9.2e}  {cf:9.2e}  {float(s.alpha[0]):9.2e}  "

@@ -6,8 +6,11 @@ batch-native solver (``CaNNOLeSSolver.run``), in sequential chunks when
 budget (``max_time``).  A diverging lane cannot stall or kill the batch:
 every lane carries its own status.
 
-Not in this slice: ``mesh=`` (ROADMAP queue 1 item 15) raises
-``NotImplementedError``.
+``mesh=`` (a batch mesh, ``parallel/mesh.py``) splits the lanes over the
+ranks: every rank is given the whole batch, as JAX's global array, solves
+its B/k lanes on its own device through the same path (rescue included)
+and gets the whole ``BatchResult`` back, the same on every rank
+(``_gather_lanes``).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from ..core.status import Status
 from ..ops.fused_ldlt import max_n
 from ..problem import NLSProblem
 from ..utils.convert import tree_to_torch
+from .mesh import Mesh, make_batch_mesh
 
-__all__ = ["vsolve", "BatchResult"]
+__all__ = ["vsolve", "BatchResult", "make_batch_mesh"]
 
 
 @dataclasses.dataclass
@@ -109,7 +113,7 @@ def vsolve(
     method: str = "newton",
     linsolve: str = "auto",
     kkt: str = "auto",
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     max_iter: int = 100,
     chunk_size: Optional[int] = None,
     max_time: Optional[float] = None,
@@ -122,8 +126,14 @@ def vsolve(
 
     ``x0_batch``: (B, nvar).  ``data_batch``: optional pytree whose leaves
     carry a leading B axis.  ``dtype``/``device`` place the solver built
-    here (default: those of ``problem.x0``); with ``solver`` given, its own
-    are used.  Inputs are moved there; numpy data leaves become tensors.
+    here (default: those of ``problem.x0``, or ``mesh.device`` with a
+    mesh); with ``solver`` given, its own are used.  Inputs are moved
+    there; numpy data leaves become tensors.
+
+    ``mesh``: a batch mesh; every rank calls ``vsolve`` with the whole batch
+    (B must divide evenly over the ranks), solves its own contiguous B/k
+    lanes and returns the whole result.  ``chunk_size`` is ignored under a
+    mesh (with a warning), and ``max_time`` requires ``mesh=None``.
 
     ``linsolve='auto'`` takes the fused LDLᵀ kernel ('pallas') where the
     KKT size fits the kernel's cap (``ops.fused_ldlt.max_n``), else the
@@ -149,9 +159,9 @@ def vsolve(
     ``max_time`` the rescue runs only while budget remains, and only on
     lanes that were dispatched.
     """
-    if mesh is not None:
-        raise NotImplementedError("vsolve(mesh=...) is not ported yet: ROADMAP queue 1 item 15")
     problem.validate_for_solve()
+    if mesh is not None and device is None:
+        device = mesh.device
     if solver is None:
         method_r = _check_available_method(method)
         if kkt == "auto":
@@ -178,6 +188,11 @@ def vsolve(
     cfg = solver.make_config(max_iter=max_iter, **numeric)
 
     if max_time is not None:
+        if mesh is not None:
+            raise ValueError(
+                "vsolve(max_time=...) requires mesh=None: the budget is "
+                "enforced by host-driven chunk dispatch"
+            )
         result, remaining = _vsolve_deadline(
             solver, x0_batch, lam0_batch, data_batch, cfg, chunk_size, max_time
         )
@@ -189,13 +204,28 @@ def vsolve(
             )
         return result
 
-    use_chunks = chunk_size is not None and B % chunk_size == 0 and B > chunk_size
-    if chunk_size is not None and not use_chunks and chunk_size != B:
+    use_chunks = (
+        chunk_size is not None and mesh is None and B % chunk_size == 0 and B > chunk_size
+    )
+    if chunk_size is not None and not use_chunks and not (mesh is None and chunk_size == B):
+        why = "mesh is set" if mesh is not None else (
+            f"chunking requires chunk_size < B dividing B, B={B}"
+        )
         warnings.warn(
-            f"vsolve: chunk_size={chunk_size} ignored (chunking requires chunk_size < B "
-            f"dividing B, B={B}); running the whole batch at once",
+            f"vsolve: chunk_size={chunk_size} ignored ({why}); running the whole batch at once",
             stacklevel=2,
         )
+    if mesh is not None:
+        lanes = mesh.block(B, "vsolve(mesh=...)")
+        x0_l, lam0_l = x0_batch[lanes], lam0_batch[lanes]
+        data_l = _tree_index(data_batch, lanes)
+        part = BatchResult(states=solver.run(x0_l, lam0_l, cfg, data_l), solver=solver)
+        if rescue:
+            part = _rescue_unsolved(
+                solver, part, x0_l, lam0_l, data_l, cfg, skip_stage1=solver.quality_gate
+            )
+        states = _gather_lanes(part.states, mesh, B, lanes, data_batch)
+        return BatchResult(states=states, solver=solver)
     if use_chunks:
         parts = []
         for lo in range(0, B, chunk_size):
@@ -213,6 +243,44 @@ def vsolve(
             skip_stage1=solver.quality_gate,
         )
     return result
+
+
+def _gather_lanes(part: SolverState, mesh: Mesh, B: int, lanes: slice, data) -> SolverState:
+    """The whole batch's state on every rank from each rank's ``lanes``: one
+    all-reduce SUM of a zero-filled (B, ·) int64 buffer into which each rank
+    writes the bits of its own lanes (float32 and int32 fields widened from
+    their int32 bits, float64 fields as their int64 bits, booleans as 0/1).
+    A sum of one lane's bits and zeros is those bits, so the gather is exact
+    (NaN payloads and the sign of zero included) and needs no all_gather,
+    which gloo does not offer on CUDA tensors."""
+    cols = []
+    for f in TENSOR_FIELDS:
+        t = getattr(part, f)
+        flat = t.reshape(t.shape[0], -1)
+        if t.dtype == torch.float64:
+            flat = flat.view(torch.int64)
+        elif t.dtype == torch.float32:
+            flat = flat.view(torch.int32)
+        cols.append(flat.to(torch.int64))
+    local = torch.cat(cols, 1)
+    buf = local.new_zeros((B, local.shape[1]))
+    buf[lanes] = local
+    buf = mesh.sum(buf)
+    out, lo = {}, 0
+    for f, c in zip(TENSOR_FIELDS, cols):
+        t = getattr(part, f)
+        v = buf[:, lo:lo + c.shape[1]]
+        lo += c.shape[1]
+        if t.dtype == torch.bool:
+            v = v != 0
+        elif t.dtype == torch.float64:
+            v = v.contiguous().view(torch.float64)
+        elif t.dtype == torch.float32:
+            v = v.to(torch.int32).view(torch.float32)
+        else:
+            v = v.to(t.dtype)
+        out[f] = v.reshape((B,) + t.shape[1:])
+    return SolverState(**out, data=data)
 
 
 def _rescue_unsolved(

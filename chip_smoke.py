@@ -119,7 +119,25 @@ the card (``max_time=60``, the runner's default).
    status, iter and nfact equal, solutions within 1e-12;
 18. examples: ``examples/torch_01_basics.py``, ``torch_02_batched_sweep.py``
    and ``torch_04_bundle_adjustment.py`` on the card, each in a process of
-   its own, all started when the pool starts; each must exit 0.
+   its own, all started when the pool starts; each must exit 0;
+19. the multi-device layer with k gloo ranks sharing the card
+   (``parallel.launch``; after the pool, so that no rank slows its rows):
+   BASELINE config 4 (``benchmarks/bench_large.py``'s 10,240 × 1,024 problem,
+   float32, Gauss–Newton, condensed, ``chol``, ``block_size=128``,
+   ``max_iter=30``) through ``solve_row_sharded`` over k = 1, 2, 4 at both
+   seams against the one-process solve (status, iter, nfact, nlinsolve
+   equal, x within ``SHARD_DX_BAR``, every rank the same bits, the Cholesky
+   kernel launched on every rank at the kernel seam only), with the warm
+   wall, each rank's peak memory and launches; the row-sharded
+   ``MatrixFreeSolver`` at k = 4 against its one-process run; BASELINE
+   config 5 (``benchmarks/scaling.py``'s family and draw, B = 102,400)
+   through ``vsolve(mesh=...)`` over 4 ranks against the one-process run
+   lane by lane (statuses equal but for ``SHARD_CFG5_NAMED``, x within
+   ``SHARD_CFG5_DX_BAR``), ``batch_convergence_stats`` equal to the
+   result's own counts, the LDLᵀ kernel launched on every rank;
+   ``scaling_bench`` rows at k = 1, 2, 4 (printed, labelled
+   ``one_card_shared``: not scaling); the 8,192-row curve fit in float64
+   over 4 ranks on the card against 4 ranks on the CPU.
 
 Phases 14 and 15 run in this process while the pool's workers solve the
 battery of phases 11-12 (no custom kernel runs in them: the Schur system
@@ -1408,6 +1426,273 @@ def phase_examples(runs, ends):
     return out
 
 
+# Phase 19: the multi-device layer with k ranks (gloo) sharing this one card.
+# The walls are of k processes on one card and one host: they check the
+# sharded program and say nothing of scaling.  BASELINE config 4 is
+# benchmarks/bench_large.py's problem (its numpy draw at seed 0, m = 10,240,
+# n = 1,024, float32, Gauss–Newton, condensed, chol, block_size=128,
+# max_iter=30); config 5 is benchmarks/scaling.py's family and draw (the
+# bench family, float32) at B = 102,400.
+SHARD_CFG4 = (10_240, 1024)
+SHARD_RANKS = (1, 2, 4)
+SHARD_CFG5_B = 102_400
+# benchmarks/scaling.py's default batch, for the scaling_bench rows
+SHARD_SCALING_B = 4096
+SHARD_FIT64_M = 8192
+# Bars, about ten times the first H100 reading (NVIDIA H100 80GB HBM3,
+# 700 W).  Config 4 (float32): max |x − x_unsharded| of solve_row_sharded
+# and of the row-sharded MatrixFreeSolver: the sums over row blocks only
+# reorder float32 additions (JᵀJ has κ ≈ 4); read 2.4e-7 (one ulp of |x| in
+# [2, 4)) at k = 2 and 4 for both, 0 at k = 1 (every collective the
+# identity).
+SHARD_DX_BAR = 2.5e-6
+SHARD_MF_DX_BAR = 2.5e-6
+# config 5: on lanes whose status agrees, |x − x_k=1| (float32); read 0,
+# every lane bit-equal (each lane's arithmetic does not depend on the
+# batch's size); 1e-6 leaves room for another cuBLAS algorithm at another
+# batch size.
+SHARD_CFG5_DX_BAR = 1e-6
+# config-5 lanes whose status may differ between k = 4 and k = 1: none named
+SHARD_CFG5_NAMED: dict = {}
+# float64 card vs CPU at k = 4 (as phase 6): x within 1e-10
+SHARD_FIT64_DX_BAR = 1e-10
+
+
+def _rank_sync(dev, group=None):
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dist.barrier(group=group)
+
+
+def _shard_counters(st):
+    ss = st.solver_specific
+    return (st.status, st.iter, ss["nfact"], ss["nlinsolve"], ss["nbk"])
+
+
+def _rank_cfg4(pb, mesh):
+    """Config 4 on this rank's rows of ``mesh`` at both seams, twice each
+    (the second solve is the warm one): counters, x, the warm wall, peak
+    device memory and the Cholesky kernel's launches of the warm solve."""
+    from cannoles_tpu_torch import CaNNOLeSSolver
+    from cannoles_tpu_torch.ops import block_chol as bc
+    from cannoles_tpu_torch.parallel.schur import solve_row_sharded
+
+    dev = mesh.device
+    out = {}
+    for seam, pcm in (("kernel", 0), ("default", None)):
+        s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol", block_size=128,
+                           pallas_chol_min=pcm, mesh=mesh)
+        for _ in range(2):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            bc.FUSED_LAUNCHES = 0
+            _rank_sync(dev, mesh.group)
+            t0 = time.perf_counter()
+            st = solve_row_sharded(pb, mesh, solver=s, max_iter=30)
+            _rank_sync(dev, mesh.group)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else float("nan")
+        out[seam] = dict(counters=_shard_counters(st), x=st.solution, wall_s=wall, launches=bc.FUSED_LAUNCHES,
+                         peak_gb=peak)
+    return out
+
+
+def _rank_fit64(device):
+    """The 8,192-row curve fit in float64, row-sharded over every rank."""
+    from cannoles_tpu_torch.models.families import curve_fit_family
+    from cannoles_tpu_torch.parallel.mesh import make_row_mesh
+    from cannoles_tpu_torch.parallel.schur import solve_row_sharded
+
+    mesh = make_row_mesh(device=device)
+    st = solve_row_sharded(curve_fit_family(SHARD_FIT64_M, dtype=torch.float64, device=mesh.device), mesh)
+    return dict(counters=_shard_counters(st), x=st.solution)
+
+
+def rank_phase19(m, n, B5, device=None):
+    """Phase 19's program on one of the ranks (``device``: None for the
+    card): config 4 over the first k ranks for each k of SHARD_RANKS (the
+    others wait), the row-sharded MatrixFreeSolver on config 4, config 5
+    (B5 lanes) through ``vsolve(mesh=...)`` with its statistics, the
+    scaling rows, and the float64 fit with its rows on this device and on
+    the CPU (gloo reduces CPU tensors over the same group)."""
+    import torch.distributed as dist
+
+    from cannoles_tpu_torch import MatrixFreeSolver, vsolve
+    from cannoles_tpu_torch.models.families import large_rung_problem, lm_bench_batch, lm_bench_family
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+    from cannoles_tpu_torch.parallel.mesh import make_batch_mesh, make_row_mesh
+    from cannoles_tpu_torch.parallel.multihost import batch_convergence_stats, scaling_bench
+
+    world = make_row_mesh(device=device)
+    dev = world.device
+    pb, _, _ = large_rung_problem(m, n, dtype=torch.float32, device=dev)
+    out = {"cfg4": {}}
+    for k in SHARD_RANKS:
+        group = dist.new_group(list(range(k)))  # collective: every rank makes it
+        if world.rank < k:
+            out["cfg4"][k] = _rank_cfg4(pb, make_row_mesh(group, device=device))
+        _rank_sync(dev)
+
+    t0 = time.perf_counter()
+    st = MatrixFreeSolver(pb, mesh=world).solve(max_iter=30, max_time=600.0)
+    _rank_sync(dev)
+    out["matfree"] = dict(counters=_shard_counters(st), ncg=st.solver_specific["ncg"], x=st.solution,
+                          wall_s=time.perf_counter() - t0)
+    del pb
+
+    mesh = make_batch_mesh(device=device)
+    fam = lm_bench_family(torch.float32, dev)
+    x0, d = lm_bench_batch(B5, seed=0)
+    fl.LAUNCHES = 0
+    _rank_sync(dev)
+    t0 = time.perf_counter()
+    res = vsolve(fam, x0, data_batch=d, mesh=mesh, max_iter=50)
+    _rank_sync(dev)
+    wall = time.perf_counter() - t0
+    launches = fl.LAUNCHES
+    first = mesh.rank == 0  # the result is the same on every rank: one copy comes back
+    out["cfg5"] = dict(wall_s=wall, launches=launches, stats=batch_convergence_stats(res.states, mesh),
+                       linsolve=res.solver.linsolve, kkt=res.solver.kkt,
+                       status=res.status if first else None, x=res.solution if first else None,
+                       iters=res.iterations if first else None)
+    out["scaling"] = scaling_bench(fam, x0[:SHARD_SCALING_B], d[:SHARD_SCALING_B], device_counts=[1, 2, 4],
+                                   reps=1, device=device)
+    out["fit64"] = {where: _rank_fit64(where) for where in (device, "cpu")}
+    return out
+
+
+def _unsharded_cfg4(pb, pcm):
+    from cannoles_tpu_torch import CaNNOLeSSolver
+    from cannoles_tpu_torch.core.solver import _add_batch_axis
+    from cannoles_tpu_torch.core.status import status_name
+
+    s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol", block_size=128,
+                       pallas_chol_min=pcm)
+    st = s.run(pb.x0[None], pb.y0[None], s.make_config(max_iter=30), _add_batch_axis(pb.data, pb.x0.device))
+    counters = (status_name(int(st.status[0])), int(st.iter[0]), int(st.nfact[0]), int(st.nlinsolve[0]),
+                int(st.nbk[0]))
+    return counters, st.x[0].cpu().numpy()
+
+
+def phase_sharded(dev, m=SHARD_CFG4[0], n=SHARD_CFG4[1], B5=SHARD_CFG5_B):
+    """Phase 19: the sharded paths with gloo ranks sharing the card, each
+    against the port's one-process run (see SHARD_*), in one launch of
+    max(SHARD_RANKS) ranks.  ``dev`` may be the CPU, at smaller sizes, to
+    rehearse the phase."""
+    from cannoles_tpu_torch import MatrixFreeSolver, vsolve
+    from cannoles_tpu_torch.models.families import large_rung_problem, lm_bench_batch, lm_bench_family
+    from cannoles_tpu_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    pb, x_true, _ = large_rung_problem(m, n, dtype=torch.float32, device=dev)
+    ref = {seam: _unsharded_cfg4(pb, pcm) for seam, pcm in (("kernel", 0), ("default", None))}
+    t0 = time.perf_counter()
+    mf = MatrixFreeSolver(pb).solve(max_iter=30, max_time=600.0)
+    mf_wall = time.perf_counter() - t0
+    mf_ref = (_shard_counters(mf), mf.solver_specific["ncg"], mf.solution)
+    del pb
+    fam = lm_bench_family(torch.float32, dev)
+    x0, d = lm_bench_batch(B5, seed=0)
+    t0 = time.perf_counter()
+    one = vsolve(fam, x0, data_batch=d, max_iter=50)
+    if on_card:
+        torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    for seam, (c, x) in ref.items():
+        _log(f"  config 4 {m}x{n} unsharded ({seam} seam): {c}, max |x - x_true| "
+             f"{np.abs(x - x_true).max():.3e}")
+    _log(f"  config 4 MatrixFreeSolver unsharded: {mf_ref[0]}, ncg {mf_ref[1]}, wall {mf_wall:.3f} s")
+    _log(f"  config 5 B={B5} k=1 (mesh=None): {one.summary()}, wall {one_wall:.3f} s")
+
+    k = SHARD_RANKS[-1]
+    t0 = time.perf_counter()
+    ranks = launch(rank_phase19, k, m, n, B5, None if on_card else "cpu")
+    _log(f"  launch of {k} ranks on {dev.type}: {time.perf_counter() - t0:.1f} s")
+
+    bad, out = [], {"cfg4": {}, "launches_cfg4_per_rank": {}}
+    for kk in SHARD_RANKS:
+        members = [r["cfg4"][kk] for r in ranks[:kk]]
+        for seam in ("kernel", "default"):
+            c_ref, x_ref = ref[seam]
+            r0 = members[0][seam]
+            dx = float(np.abs(r0["x"] - x_ref).max())
+            err = float(np.abs(r0["x"] - x_true).max())
+            launches = [r[seam]["launches"] for r in members]
+            walls = [r[seam]["wall_s"] for r in members]
+            peaks = [r[seam]["peak_gb"] for r in members]
+            same = all(np.array_equal(r[seam]["x"], r0["x"]) and r[seam]["counters"] == r0["counters"]
+                       for r in members)
+            _log(f"  config 4 k={kk} ({seam} seam): {r0['counters']}, max |x - x_unsharded| {dx:.3e}, "
+                 f"max |x - x_true| {err:.3e}, warm wall {max(walls):.4f} s (per rank "
+                 f"{[round(w, 4) for w in walls]}), peak device memory per rank "
+                 f"{[round(p, 3) for p in peaks]} GB, Cholesky kernel launches per rank {launches}, "
+                 f"ranks bit-equal {same}")
+            out["cfg4"][f"k={kk} {seam}"] = dict(counters=r0["counters"], dx=dx, err=err, wall_s=max(walls),
+                                                 peak_gb=peaks, launches=launches)
+            if seam == "kernel":
+                out["launches_cfg4_per_rank"][f"k={kk}"] = launches
+            if r0["counters"][:4] != c_ref[:4] or not dx <= SHARD_DX_BAR or not err <= 1e-3 or not same:
+                bad.append(f"config 4 k={kk} {seam}")
+            if min(launches) <= 0 if seam == "kernel" else max(launches) > 0:
+                bad.append(f"config 4 k={kk} {seam}: launches {launches}")
+
+    r0 = ranks[0]
+    mf_k = r0["matfree"]
+    mdx = float(np.abs(mf_k["x"] - mf_ref[2]).max())
+    mf_same = all(np.array_equal(r["matfree"]["x"], mf_k["x"]) for r in ranks)
+    _log(f"  config 4 MatrixFreeSolver k={k}: {mf_k['counters']}, ncg {mf_k['ncg']} (unsharded {mf_ref[1]}), "
+         f"max |x - x_unsharded| {mdx:.3e}, wall {mf_k['wall_s']:.3f} s, ranks bit-equal {mf_same}")
+    out["matfree"] = dict(counters=mf_k["counters"], ncg=mf_k["ncg"], ncg_unsharded=mf_ref[1], dx=mdx,
+                          wall_s=mf_k["wall_s"], wall_unsharded_s=mf_wall)
+    if (mf_k["counters"][:3] != mf_ref[0][:3] or abs(mf_k["ncg"] - mf_ref[1]) > max(2, 0.02 * mf_ref[1])
+            or not mdx <= SHARD_MF_DX_BAR or not mf_same):
+        bad.append(f"matfree k={k}")
+
+    c5 = r0["cfg5"]
+    st1, stk = one.status, c5["status"]
+    differ = np.nonzero(st1 != stk)[0]
+    unnamed = [int(i) for i in differ if int(i) not in SHARD_CFG5_NAMED]
+    eq = st1 == stk
+    cdx = float(np.abs(c5["x"][eq] - one.solution[eq]).max())
+    same_iters = int((c5["iters"] == one.iterations).sum())
+    solved = (stk == 1) | (stk == 2)
+    own = dict(solved=int(solved.sum()), n=int(stk.shape[0]), total_iters=int(c5["iters"].sum()))
+    stats_ok = all({q: r["cfg5"]["stats"][q] for q in own} == own for r in ranks)
+    c5_launches = [r["cfg5"]["launches"] for r in ranks]
+    _log(f"  config 5 B={B5} k={k} (vsolve(mesh=), linsolve={c5['linsolve']}, kkt={c5['kkt']}): "
+         f"stats {c5['stats']}, statuses differing from k=1 {differ.size} (unnamed {unnamed[:10]}), "
+         f"iterations equal on {same_iters}/{stk.shape[0]} lanes, max |x - x_k=1| on equal statuses {cdx:.3e}, "
+         f"batch_convergence_stats equal to the result's own counts on every rank {stats_ok}, wall "
+         f"{max(r['cfg5']['wall_s'] for r in ranks):.3f} s, LDLT kernel launches per rank {c5_launches}")
+    out["cfg5"] = dict(stats=c5["stats"], differ=int(differ.size), dx=cdx, wall_s=max(r["cfg5"]["wall_s"]
+                       for r in ranks), wall_k1_s=one_wall, launches=c5_launches)
+    if unnamed or not cdx <= SHARD_CFG5_DX_BAR or not stats_ok or min(c5_launches) <= 0:
+        bad.append(f"config 5 k={k}")
+
+    out["scaling"] = [dict(row, mesh="one_card_shared") for row in r0["scaling"]]
+    for row in out["scaling"]:
+        _log(f"  scaling_bench B={SHARD_SCALING_B} devices={row['devices']} throughput {row['throughput']:.1f}/s "
+             f"time {row['time']:.4f} s speedup {row['speedup']:.3f} efficiency {row['efficiency']:.3f} "
+             f"[one_card_shared: ranks share one card, not scaling]")
+
+    (g, c) = (r0["fit64"][w] for w in (None if on_card else "cpu", "cpu"))
+    fdx = float(np.abs(g["x"] - c["x"]).max())
+    f_same = all(np.array_equal(r["fit64"][w]["x"], r0["fit64"][w]["x"]) for r in ranks for w in r["fit64"])
+    _log(f"  curve fit {SHARD_FIT64_M} rows float64 k={k}: {dev.type} {g['counters']}, CPU {c['counters']}, "
+         f"max |x_{dev.type} - x_cpu| {fdx:.3e}, ranks bit-equal {f_same}")
+    out["fit64"] = dict(card=g["counters"], cpu=c["counters"], dx=fdx)
+    if g["counters"] != c["counters"] or not fdx <= SHARD_FIT64_DX_BAR or not f_same:
+        bad.append(f"float64 fit {dev.type} vs CPU")
+    out["wall_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 19 took {out['wall_s']:.1f} s")
+    if bad:
+        raise AssertionError("phase 19: " + "; ".join(bad))
+    return out
+
+
 def _stop(runs):
     for p, f in runs.values():
         if p.poll() is None:
@@ -1555,6 +1840,8 @@ def main() -> int:
         examples_out = phase_examples(examples, example_ends)
     finally:
         _stop(examples)
+    _phase("phase 19: the multi-device layer, k gloo ranks sharing the card")
+    sharded = phase_sharded(dev)
 
     head_t, ba_t, rescue_t = (times[f"N={N} B={B}"] for N, B in ((5, 16384), (73, 256), rescue))
     _log(smi)
@@ -1579,6 +1866,8 @@ def main() -> int:
         "ba": ba,
         "launches_deadline": deadline_launches,
         "deadline": deadline,
+        # phase 19: vsolve(mesh=) over 4 ranks on BASELINE config 5
+        "launches_config5_per_rank": sharded["cfg5"]["launches"],
     }, {
         "name": "chol_fused",
         "route": "cuda",
@@ -1591,6 +1880,8 @@ def main() -> int:
         "shape": "f32 N=1024 nb=256 B=1 (factor)",
         "large_rung": large,
         "ba_16x300": ba_large,
+        # phase 19: solve_row_sharded at the kernel seam on BASELINE config 4
+        "launches_config4_per_rank": sharded["launches_cfg4_per_rank"],
     }, {
         "name": "chol_block",
         "route": "cuda",
@@ -1607,7 +1898,8 @@ def main() -> int:
         "blocked_route": times7["blocked"],
         "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor: the block kernel + torch.matmul)",
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
-        "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out}))
+        "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
+        "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"}}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -1,9 +1,10 @@
-"""The PyTorch port's examples (``examples/torch_0{1,2,4}_*.py``) on the CPU.
+"""The PyTorch port's examples (``examples/torch_0{1,2,3,4}_*.py``) on the CPU.
 
-Each runs with ``--cpu`` in a subprocess of its own (all three started at
+Each runs with ``--cpu`` in a subprocess of its own (all four started at
 once, each waited for with its own timeout), must exit 0 and must print the
-statuses its JAX twin (``examples/0{1,2,4}_*.py --cpu``) prints.  Without a
-card and without ``--cpu`` an example raises.
+statuses its JAX twin (``examples/0{1,2,3,4}_*.py --cpu``) prints.  Example
+03's row-sharded solve runs on 8 spawned ranks, as its twin's on 8 virtual
+devices.  Without a card and without ``--cpu`` an example raises.
 """
 
 import os
@@ -30,6 +31,11 @@ EXPECTED = {
         ("sweep:", ["'solved': 512", "'first_order': 512", "'exception': 0"]),
         ("freudenstein_roth:", ["single start Σf² = 48.98"]),
     ]),
+    "torch_03_large_and_sharded.py": (300, [
+        ("curve fit 8192 rows:", ["first_order"]),
+        ("row-sharded:", ["first_order"]),
+        ("bundle adjustment:", ["first_order"]),
+    ]),
     "torch_04_bundle_adjustment.py": (400, [
         ("batched scenes:", ["'solved': 8", "'first_order': 8"]),
         ("schur 10c/500p:", ["first_order"]),
@@ -43,7 +49,7 @@ EXPECTED = {
 
 @pytest.fixture(scope="module")
 def runs():
-    """All three examples started at once; one intra-op thread each."""
+    """All four examples started at once; one intra-op thread each."""
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name), "--cpu"], cwd=ROOT,
                                     env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)

@@ -396,3 +396,48 @@ def test_separable_fit_on_card_matches_cpu(cuda):
     else:
         for st, d in ((g, dg), (c, dc)):
             assert st.iter == (1 if d[1] <= epstol else 2), (st.iter, d[1], epstol)
+
+
+def test_row_sharded_on_card_matches_unsharded(cuda):
+    """``solve_row_sharded`` on 2 gloo ranks sharing the card (the problems
+    of ``tests/test_schur.py`` and the BA scene of ``tests/test_families.py``,
+    float64) against the one-process solve on the card: status and counters
+    equal, x within 1e-8 (the JAX test's bar between its sharded and its
+    unsharded solve), every rank the same bits, and m not divisible by the
+    ranks refused."""
+    import torch_ranks
+    from cannoles_tpu_torch.models.families import bundle_adjustment
+    from cannoles_tpu_torch.parallel.launch import launch
+    from cannoles_tpu_torch.parallel.mesh import make_row_mesh
+    from cannoles_tpu_torch.parallel.schur import solve_row_sharded
+
+    got = launch(torch_ranks.schur_cases, 2, None)
+    one = make_row_mesh(device=cuda)  # no process group here: one rank, the unsharded solve
+    refs = {
+        "curvefit": solve_row_sharded(torch_ranks.curvefit_problem(8192, device=cuda), one, method="gauss_newton"),
+        "constrained": solve_row_sharded(torch_ranks.constrained_problem(4096, device=cuda), one),
+        "ba": solve_row_sharded(bundle_adjustment(n_cams=4, n_pts=16, noise=0.0, device=cuda)[0], one,
+                                method="gauss_newton"),
+    }
+    for case, ref in refs.items():
+        want = torch_ranks._stats(ref)
+        for r in got:
+            assert [r[case][k] for k in ("status", "iter", "nfact", "nlinsolve", "nbk")] == \
+                [want[k] for k in ("status", "iter", "nfact", "nlinsolve", "nbk")], case
+            assert np.abs(r[case]["x"] - want["x"]).max() <= 1e-8, case
+            assert np.array_equal(r[case]["x"], got[0][case]["x"]), case
+        assert "should be divisible by 2" in got[0]["uneven"]
+
+
+def test_launch_backend_on_card(cuda):
+    """The launcher's backend rule: one rank per card gives the
+    device-typed ``cpu:gloo,cuda:nccl`` group, more ranks than cards plain
+    gloo; either reduces a CPU tensor and a CUDA tensor on every rank."""
+    import torch_ranks
+    from cannoles_tpu_torch.parallel.launch import launch
+
+    cards = torch.cuda.device_count()
+    for k, backend in ((cards, "nccl"), (cards + 1, "gloo")):
+        for got in launch(torch_ranks.backend_probe, k):
+            assert backend in got["backend"], got
+            assert got["cpu"] == [float(k)] * 2 and got["card"] == [float(k)] * 2, got

@@ -1,7 +1,9 @@
 """PyTorch port, the matrix-free engine (``core/matfree.py``) against the
-JAX package in float64 on the CPU: the 10 single-device tests of
-``tests/test_matfree_solver.py`` (the row-sharded one waits for the
-multi-device slice).
+JAX package in float64 on the CPU: the 11 tests of
+``tests/test_matfree_solver.py``, the row-sharded one through
+``MatrixFreeSolver(problem, mesh=...)`` on 4 spawned gloo ranks (their
+program is ``tests/torch_ranks.py``'s ``matfree_rows``) against JAX's run
+with the data on its 8 virtual CPU devices.
 
 Each test runs the JAX test's problem through both packages and asserts
 what the JAX test asserts, plus parity: status equal, ``iter``, ``nfact``,
@@ -309,3 +311,28 @@ def test_matfree_lm_still_solves_tame_problems():
     assert_mf_parity(a, b)
     assert b.status in ("first_order", "small_residual")
     np.testing.assert_allclose(b.solution, [1.0, 1.0], atol=1e-4)
+
+
+def test_row_sharded_matfree():
+    """``tests/test_matfree_solver.py::test_row_sharded_matfree``: the rows of
+    A and b split over the ranks; every Jᵀw all-reduced."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    import torch_ranks
+    from cannoles_tpu_torch.parallel.launch import launch
+
+    A, b, x_true = torch_ranks.linear_rows_data()
+    rows = NamedSharding(Mesh(np.asarray(jax.devices()[:8]), axis_names=("rows",)), P("rows"))
+    data = {"A": jax.device_put(jnp.asarray(A), rows), "b": jax.device_put(jnp.asarray(b), rows)}
+    pb = jc.nls_problem(lambda x, d: d["A"] @ x - d["b"], jnp.zeros(A.shape[1]), A.shape[0], data=data)
+    a = jc.solve_matfree(pb)
+    got = launch(torch_ranks.matfree_rows, 4)
+    for r in got:
+        assert r["status"] in ("first_order", "small_residual")
+        np.testing.assert_allclose(r["x"], x_true, atol=1e-6)
+        assert (r["status"], r["iter"]) == (a.status, a.iter)
+        assert [r[k] for k in COUNTERS] == [a.solver_specific[k] for k in COUNTERS]
+        np.testing.assert_allclose(r["x"], np.asarray(a.solution), rtol=0,
+                                   atol=SOL_TOL * max(1.0, np.abs(a.solution).max()))
+        np.testing.assert_array_equal(r["x"], got[0]["x"])

@@ -20,6 +20,7 @@ from cannoles_tpu_torch.models.families import (  # noqa: E402
     lm_bench_family,
 )
 from cannoles_tpu_torch.ops import fused_ldlt  # noqa: E402
+from cannoles_tpu_torch.parallel.mesh import make_batch_mesh  # noqa: E402
 
 FIELDS = ("status", "iter", "nfact", "nbk", "nlinsolve", "msg", "neval_F", "neval_c")
 
@@ -97,7 +98,8 @@ def test_vsolve_bundle_adjustment_matches_jax():
 
 def test_vsolve_chunks_and_auto_routing():
     """Sequential chunks give the lanes of one flat batch; 'auto' routes a
-    small KKT to the fused kernel; mesh is out of the slice."""
+    small KKT to the fused kernel; a one-rank batch mesh (no process group)
+    gives the flat batch too (many ranks: tests/test_torch_multihost.py)."""
     x0, d = lm_bench_batch(8, seed=2)
     pt = lm_bench_family(torch.float64, "cpu")
     flat = tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50)
@@ -107,8 +109,11 @@ def test_vsolve_chunks_and_auto_routing():
         assert torch.equal(getattr(flat.states, f), getattr(chunked.states, f)), f
     with pytest.warns(UserWarning, match="chunk_size=3 ignored"):
         tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50, chunk_size=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.vsolve(pt, x0, data_batch=d, mesh=object())
+    mesh = make_batch_mesh(device="cpu")
+    assert mesh.size == 1
+    meshed = tc.vsolve(pt, x0, data_batch=d, method="lm", max_iter=50, mesh=mesh)
+    for f in FIELDS + ("x", "lam"):
+        assert torch.equal(getattr(flat.states, f), getattr(meshed.states, f)), f
 
 
 def _family_pair():
