@@ -27,6 +27,10 @@ Quick start (on the card)::
 
 On the CPU: ``nls_problem(..., device="cpu")``.
 
+Mixed precision on the card (TF32, or a one-pass bf16 JᵀJ)::
+
+    stats = CaNNOLeSSolver(nls, dtype=torch.float32, matmul_precision="bfloat16").solve()
+
 Batched::
 
     from cannoles_tpu_torch import vsolve
@@ -35,12 +39,19 @@ Batched::
 
 from .core.ba import SchurBASolver, ba_block_jacobi
 from .core.matfree import MatrixFreeSolver, MFState, solve_matfree
-from .core.solver import CaNNOLeSSolver, RunConfig, SolverState, cannoles
+from .core.solver import (
+    AVAILABLE_LINSOLVE,
+    AVAILABLE_METHODS,
+    CaNNOLeSSolver,
+    RunConfig,
+    SolverState,
+    cannoles,
+)
 from .core.status import ExecutionStats, Status, status_name
 from .params import Params
 from .parallel.batch import BatchResult, vsolve
 from .parallel.multistart import multistart
-from .problem import NLSProblem, nls_problem
+from .problem import Counters, NLSProblem, nls_problem
 from .utils.checkpoint import load_state, save_state
 from .utils.profiling import stage_timings, trace
 
@@ -60,6 +71,9 @@ __all__ = [
     "BatchResult",
     "Params",
     "NLSProblem",
+    "Counters",
+    "AVAILABLE_METHODS",
+    "AVAILABLE_LINSOLVE",
     "MatrixFreeSolver",
     "MFState",
     "solve_matfree",

@@ -17,10 +17,9 @@ more with ``linsolve='eigh'``: the uniform pass.  Three generic rescues
 then apply to every problem, in order (``rescue=False`` skips them):
 
 * still unsolved: one retry with ``delta_min=1e-4``;
-* still unsolved: one retry with ``kkt='condensed', multiplier_refit=True``
-  (the JAX package also sets ``matmul_precision='highest'`` there, a knob
-  for the TPU's matrix unit; the port's float32 matmuls are always full
-  float32);
+* still unsolved: one retry with ``kkt='condensed', multiplier_refit=True,
+  matmul_precision='highest'`` (IEEE float32 in every matmul, as in the JAX
+  package: a rescue buys robustness, not speed);
 * unsolved, or first order at an objective measurably above the known
   optimum (a local minimum): one batched multistart sweep of 64 starts.
 
@@ -120,7 +119,7 @@ def solve_row(family, name, make, fstar, *, dtype=torch.float64, device=None, ma
             if _ok(st2):
                 stats, kind = st2, "delta_min"
         if not _ok(stats):
-            st2b = solve(kkt="condensed", multiplier_refit=True)
+            st2b = solve(kkt="condensed", multiplier_refit=True, matmul_precision="highest")
             if _ok(st2b):
                 stats, kind = st2b, "condensed_refit"
         local_min = (

@@ -42,6 +42,7 @@ import torch
 from ..params import F_BLOWUP, MAX_DLAMBDA, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_2, norm_inf
+from ..utils.precision import matmul_mode, scoped
 from ..utils.prng import rademacher
 from ..parallel.mesh import row_block
 from .solver import CaNNOLeSSolver, RunConfig, _add_batch_axis, _BudgetSpent, _sel
@@ -239,9 +240,6 @@ class MatrixFreeSolver:
         self.use_initial_multiplier = bool(use_initial_multiplier)
         self.always_accept_extrapolation = bool(always_accept_extrapolation)
         self.multiplier_refit = bool(multiplier_refit)
-        # full float32 in every product and contraction (no TF32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.last_state: Optional[MFState] = None
         self.host_syncs = 0
         self._deadline: Optional[float] = None
@@ -253,6 +251,11 @@ class MatrixFreeSolver:
     _rsum = CaNNOLeSSolver._rsum
     _rmax = CaNNOLeSSolver._rmax
     _rany = CaNNOLeSSolver._rany
+
+    def _matmul_scope(self):
+        """IEEE float32 in every product and contraction on the card (the
+        JAX package's MatrixFreeSolver has no matmul_precision)."""
+        return matmul_mode("highest")
 
     # ---------------- operator pieces (all matrix-free) ----------------
     def _dual_at(self, x, r, lam, data):
@@ -652,6 +655,7 @@ class MatrixFreeSolver:
         return _sel_state(active, s, s_in)
 
     # ---------------- host-driven solve ----------------
+    @scoped
     def solve(
         self,
         x0=None,

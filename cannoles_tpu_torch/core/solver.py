@@ -29,15 +29,23 @@ mesh (the identity without one), where the JAX package lets GSPMD insert
 the all-reduces.  x, λ, the condensed system and every n- or p-vector stay
 replicated, bit for bit equal on every rank, so every host decision agrees.
 
-The XLA/TPU seams ``_scalar_mode``, ``_reuse_trial_linearization``,
-``_descent_rescue_eigh`` and ``matmul_precision`` are not ported: float32
-matmuls run in full float32 (TF32 is switched off explicitly, see
-``CaNNOLeSSolver.__init__``), which is what the JAX package's critical
-contractions pin with ``precision='highest'``.
+``matmul_precision`` (None | 'highest' | 'float32' | 'bfloat16' |
+'tensorfloat32') sets the precision of the solve's float32 matmuls on the
+card, scoped to ``solve()``/``run()`` by ``utils.precision.matmul_mode``:
+IEEE float32 for the first three, TF32 for 'tensorfloat32', and for
+'bfloat16' a one-pass bf16 JᵀJ condensation with float32 accumulation (the
+other unpinned matmuls in TF32).  The factorization attempts and the
+quality-gate residual stay IEEE under every mode, as the JAX package pins
+them to ``precision='highest'``; on the CPU every matmul is IEEE under every
+mode, and only the gate's tolerance follows the mode (``_gate_eps``).
+
+The XLA/TPU seams ``_scalar_mode``, ``_reuse_trial_linearization`` and
+``_descent_rescue_eigh`` are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -53,6 +61,7 @@ from ..parallel.mesh import row_block
 from ..params import F_BLOWUP, MAX_DLAMBDA, SMAX, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_1, norm_2, norm_inf
+from ..utils.precision import check_mode, critical_matmul, gate_eps, matmul_mode, scoped
 from .status import MSG, ExecutionStats, Status, get_status_code, status_name
 
 __all__ = [
@@ -241,6 +250,7 @@ class CaNNOLeSSolver:
         quality_gate: Optional[bool] = None,
         robust_fallback: bool = False,
         descent_rescue: bool = True,
+        matmul_precision: Optional[str] = None,
         pallas_chol_min: Optional[int] = None,
         dtype: Optional[torch.dtype] = None,
         device=None,
@@ -297,17 +307,15 @@ class CaNNOLeSSolver:
             overrides = {} if delta_min is None else {"delta_min": float(delta_min)}
             params = Params.for_dtype(self.dtype, **overrides)
         self.params = params
-        self._gate_eps = float(torch.finfo(self.dtype).eps)
+        self.matmul_precision = check_mode(matmul_precision)
+        # the gate's tolerance scales with the committed arithmetic's unit
+        # roundoff; its residual is always IEEE (_solve_quality_ok)
+        self._gate_eps = gate_eps(matmul_precision, self.dtype)
         if self.method in ("newton", "newton_vanishing") and not problem.has_residual_hessian:
             raise NotImplementedError(
                 f"problem '{problem.name}' provides no residual Hessian; "
                 "use method='gauss_newton' (reference :Newton_noFHess)"
             )
-        # Full-float32 matmuls on the card: the J'J condensation and the
-        # quality-gate residual need them (the JAX package pins them to
-        # precision='highest'); TF32 would keep ~3 decimal digits.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.last_state: Optional[SolverState] = None
         # host syncs (mask.any() reads) since construction
         self.host_syncs = 0
@@ -344,6 +352,18 @@ class CaNNOLeSSolver:
     def _rany(self, t):
         return t if self.mesh is None else self.mesh.any(t)
 
+    def _matmul_scope(self):
+        """The solve's matmul precision (``run``, ``solve`` and whoever else
+        drives the solver's steps)."""
+        return matmul_mode(self.matmul_precision)
+
+    def _pinned(self):
+        """IEEE float32 for the contractions that the JAX package pins to
+        'highest', where the solve's scope is not IEEE already."""
+        if self.matmul_precision in ("tensorfloat32", "bfloat16"):
+            return matmul_mode("highest")
+        return contextlib.nullcontext()
+
     def reset(self, problem: Optional[NLSProblem] = None) -> "CaNNOLeSSolver":
         """Re-solve support (the reference's SolverCore.reset!): with no
         argument a no-op (re-solving from a new x0 needs no reset); with a
@@ -372,6 +392,7 @@ class CaNNOLeSSolver:
             quality_gate=self.quality_gate,
             robust_fallback=self.robust_fallback,
             descent_rescue=self.descent_rescue,
+            matmul_precision=self.matmul_precision,
             pallas_chol_min=self.pallas_chol_min,
             dtype=self.dtype,
             device=self.device if mesh is None else None,
@@ -423,9 +444,10 @@ class CaNNOLeSSolver:
     def _assemble_condensed(self, H, JxT, Jcx, delta):
         """Schur-condensed KKT  K = [H + JᵀJ  Jcᵀ; Jc  -δI], (B, n+p, n+p):
         the residual block is eliminated through its -I block, which keeps
-        the inertia decisions.  JᵀJ is a full-precision batched matmul."""
+        the inertia decisions.  JᵀJ is a batched matmul at the mode's
+        precision for it (``critical_matmul``)."""
         p = self.problem.ncon
-        M = H + self._rsum(JxT @ JxT.transpose(-2, -1))
+        M = H + self._rsum(critical_matmul(JxT, JxT.transpose(-2, -1), self.matmul_precision))
         if p == 0:
             return M
         Ip = -delta[:, None, None] * torch.eye(p, dtype=H.dtype, device=H.device)
@@ -435,12 +457,19 @@ class CaNNOLeSSolver:
 
     def _solve_quality_ok(self, W, sol, rhs):
         """Backward-error gate on a factorization attempt:
-        ‖W·sol − rhs‖∞ ≤ N·eps^(3/4)·(‖rhs‖∞ + max|W|·‖sol‖₁), per lane."""
+        ‖W·sol − rhs‖∞ ≤ N·eps^(3/4)·(‖rhs‖∞ + max|W|·‖sol‖₁), per lane,
+        with ``eps`` the committed arithmetic's (``_gate_eps``) and the
+        residual in IEEE under every mode."""
         N = W.shape[-1]
         tol = self._gate_eps**0.75 * N
-        res = rhs - _mv(W, sol)
+        res = self._gate_residual(W, sol, rhs)
         scale = norm_inf(rhs) + W.abs().flatten(1).amax(-1) * norm_1(sol)
         return norm_inf(res) <= tol * (scale + 1e-30)
+
+    def _gate_residual(self, W, sol, rhs):
+        """rhs − W·sol in IEEE under every mode."""
+        with self._pinned():
+            return rhs - _mv(W, sol)
 
     def _attempt(self, W, rhs):
         sol, success = self._attempt_raw(W, rhs)
@@ -450,7 +479,11 @@ class CaNNOLeSSolver:
 
     def _attempt_raw(self, W, rhs):
         """One factorization attempt per lane: (solution of W sol = rhs,
-        inertia-success flag)."""
+        inertia-success flag), in IEEE under every mode."""
+        with self._pinned():
+            return self._attempt_backend(W, rhs)
+
+    def _attempt_backend(self, W, rhs):
         pr = self.params
         n = self.problem.nvar
         if self.linsolve == "pallas":
@@ -992,6 +1025,7 @@ class CaNNOLeSSolver:
     # ------------------------------------------------------------------
     # batched run: init, then outer steps until no lane is UNKNOWN
     # ------------------------------------------------------------------
+    @scoped
     def run(self, x0, lam0, cfg: RunConfig, data=None) -> SolverState:
         """Solve a batch to the end: x0 (B, n), lam0 (B, p), data leaves
         with a leading B axis (or None).  Counterpart of the JAX
@@ -1038,6 +1072,7 @@ class CaNNOLeSSolver:
             max_iter=i(max_iter),
         )
 
+    @scoped
     def solve(
         self,
         x0=None,
@@ -1102,8 +1137,8 @@ class CaNNOLeSSolver:
                     break
                 elapsed = time.time() - t0
                 self._sync_stats(state, stats, elapsed)
-                self._between_steps(state, stats, callback, verbose > 0 and stats.iter % verbose == 0,
-                                    elapsed > max_time)
+                log = verbose > 0 and stats.iter % verbose == 0
+                self._between_steps(state, stats, callback, log, elapsed > max_time)
                 done = stats.status != "unknown"
                 self._deadline = t0 + max_time
         finally:
@@ -1201,6 +1236,7 @@ def cannoles(
     callback=None,
     max_time: float = 30.0,
     verbose: int = 0,
+    matmul_precision: Optional[str] = None,
     dtype: Optional[torch.dtype] = None,
     device=None,
     **numeric,
@@ -1214,7 +1250,9 @@ def cannoles(
     retry), ``kkt`` ('auto' | 'full' | 'condensed'), ``multiplier_refit``, the budgets
     ``max_iter``, ``max_eval``, ``max_inner``, ``max_time``, the tolerances
     ``atol``, ``rtol``, ``Fatol``, ``Frtol``, ``verbose`` and ``callback``.
-    ``dtype``/``device`` default to those of ``problem.x0``.
+    ``matmul_precision`` is the solver's (the JAX package's ``cannoles``
+    takes it only through ``CaNNOLeSSolver``).  ``dtype``/``device`` default
+    to those of ``problem.x0``.
     Returns an :class:`ExecutionStats`.
     """
     problem.validate_for_solve()
@@ -1228,6 +1266,7 @@ def cannoles(
         use_initial_multiplier=use_initial_multiplier,
         always_accept_extrapolation=always_accept_extrapolation,
         multiplier_refit=multiplier_refit,
+        matmul_precision=matmul_precision,
         dtype=dtype,
         device=device,
     )

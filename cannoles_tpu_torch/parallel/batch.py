@@ -295,7 +295,8 @@ def _rescue_unsolved(
     backend.  The eval/inner budgets are lifted to the reference's in every
     stage.  ``eligible``: an optional boolean lane mask restricting which
     unsolved lanes may be rescued (deadline dispatch excludes lanes never
-    run).  The siblings are cached on the primary solver.  The JAX package
+    run).  The siblings keep the primary solver's options (its
+    ``matmul_precision`` too) and are cached on it.  The JAX package
     pads each subset to a power of two to bound its compiled shapes; here
     the subset runs at its own size, and the merge is an ``index_copy``
     into the full state."""
@@ -338,6 +339,7 @@ def _rescue_unsolved(
                 multiplier_refit=solver.multiplier_refit,
                 block_size=solver.block_size,
                 params=solver.params,
+                matmul_precision=solver.matmul_precision,
                 dtype=solver.dtype,
                 device=solver.device,
             )
@@ -388,7 +390,8 @@ def _vsolve_deadline(solver, x0_batch, lam0_batch, data_batch, cfg, chunk_size, 
             break
     if lo < B:
         sl = slice(lo, B)
-        st = solver._init_state(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl))
+        with solver._matmul_scope():
+            st = solver._init_state(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl))
         unknown = st.status == Status.UNKNOWN
         parts.append(st._replace(
             status=torch.where(unknown, torch.full_like(st.status, int(Status.MAX_TIME)), st.status)

@@ -68,7 +68,7 @@ def _timer(device: torch.device, reps: int):
 def stage_timings(solver, x0=None, lam0=None, reps: int = 10, **numeric) -> Dict[str, float]:
     """Seconds per stage (``init``, ``outer_step``, ``newton_system``) of a
     ``CaNNOLeSSolver`` at x0 (default ``problem.x0``), averaged over
-    ``reps`` calls."""
+    ``reps`` calls, under the solver's ``matmul_precision``."""
     pb = solver.problem
     dev = solver.device
     x0 = torch.as_tensor(pb.x0 if x0 is None else x0, dtype=solver.dtype, device=dev).reshape(1, -1)
@@ -79,9 +79,10 @@ def stage_timings(solver, x0=None, lam0=None, reps: int = 10, **numeric) -> Dict
     bench = _timer(dev, reps)
 
     out: Dict[str, float] = {}
-    out["init"] = bench(lambda: solver._init_state(x0, lam0, cfg, data))
-    state = solver._init_state(x0, lam0, cfg, data)
-    out["outer_step"] = bench(lambda: solver._outer_step(state, cfg, active))
+    with solver._matmul_scope():
+        out["init"] = bench(lambda: solver._init_state(x0, lam0, cfg, data))
+        state = solver._init_state(x0, lam0, cfg, data)
+        out["outer_step"] = bench(lambda: solver._outer_step(state, cfg, active))
 
     m = pb.nequ
 
@@ -95,5 +96,6 @@ def stage_timings(solver, x0=None, lam0=None, reps: int = 10, **numeric) -> Dict
         W0 = solver._assemble_kkt(H, s.JxT, s.Jcx, s.delta)
         return solver._newton_system(W0, torch.cat([s.dual, s.primal], -1), s.rho_old, active)[0]
 
-    out["newton_system"] = bench(newton_only)
+    with solver._matmul_scope():
+        out["newton_system"] = bench(newton_only)
     return out

@@ -55,6 +55,23 @@ Phases, in order; a failed phase raises and the script exits nonzero:
    route, so the block kernel): status and counters equal, solutions within
    1e-10.
 
+Phase 20 (``matmul_precision``) runs next, before the pool, so that its
+walls are not shared with the pool's workers:
+
+20. the large rung of phase 8 under each mode (None, 'highest', 'float32',
+   'bfloat16', 'tensorfloat32') at the default seam, in ``bench.py``'s bf16
+   commit setting (``quality_gate=False``) and under 'bfloat16' at the
+   kernel seam: per run status, iter, nfact, max |x − x_true| (``first_order``
+   and ≤ ``PREC_LARGE_BAR`` in every run), three warm walls, their CUDA-event
+   spans, and the GEMM and busy device time of a profiled solve; the BA rung
+   of phase 5 under each mode and under 'bfloat16' with the gate off (at
+   least 99% solved under the IEEE modes, the others recorded); the
+   one-pass bf16 product of the condensation against its plain version
+   ``bf16_pass_reference`` at both rungs' JᵀJ shapes (every entry within
+   2·K·u·(|a|·|b|)), with its times beside the IEEE and TF32 GEMMs'; the
+   sites pinned to IEEE bit-equal inside a TF32 scope, and an unpinned
+   product not; phase 6 in float64 under 'bfloat16' and 'tensorfloat32'.
+
 Phases 11 and 12 share one pool of worker processes (``battery.solve_index``,
 four processes) that solves the battery's 90 problems in three
 settings, the longest rows first: the uniform pass (no rescues and no
@@ -151,6 +168,9 @@ The launch counter of the LDLᵀ kernel is set to 0 just before phase 4 and
 read after phase 5; each rung must launch it.  The Cholesky kernels'
 counters are set to 0 just before phase 8 and read after phase 10: the
 fused kernel must run in phases 8-9 and the block kernel in phase 10.  The
+LDLᵀ and fused Cholesky counters are set to 0 again before phase 20 and
+read after its two rungs: the BA rung must launch the one in every run,
+the large rung's kernel seam the other.  The
 last lines are the card's ``nvidia-smi`` line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
 
@@ -480,7 +500,7 @@ def phase_ba(dev):
                 host_syncs=solver.host_syncs, ldlt_calls=_by_shape(shapes))
 
 
-def phase_parity(dev):
+def phase_parity(dev, matmul_precision=None):
     from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
     from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
 
@@ -489,7 +509,7 @@ def phase_parity(dev):
     out = {}
     for where in (dev, torch.device("cpu")):
         pb = lm_bench_family(torch.float64, where)
-        s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full")
+        s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", matmul_precision=matmul_precision)
         out[where.type] = vsolve(pb, x0, data_batch=d, solver=s, max_iter=50, rescue=True).states
     g, c = out["cuda"], out["cpu"]
     for f in ("status", "iter", "nfact", "nbk", "nlinsolve", "msg"):
@@ -498,7 +518,8 @@ def phase_parity(dev):
             lanes = torch.nonzero(a != b).flatten().tolist()
             raise AssertionError(f"card vs CPU: {f} differs on lanes {lanes}")
     err = float((g.x.cpu() - c.x).abs().max())
-    _log(f"  card vs CPU (f64, B={B}): counters equal, max |x_gpu - x_cpu| {err:.3e}")
+    _log(f"  card vs CPU (f64, B={B}, matmul_precision={matmul_precision}): counters equal, "
+         f"max |x_gpu - x_cpu| {err:.3e}")
     if not err <= 1e-10:
         raise AssertionError(f"card vs CPU solutions differ by {err}")
     return err
@@ -516,9 +537,10 @@ def _rel(got, ref):
 # Published peaks of one H100 SXM (NVIDIA's data sheet): memory 3.35 TB/s;
 # float32 67 TFLOP/s outside the tensor cores (their float32 is TF32, which
 # full precision rules out); float64 67 TFLOP/s on the tensor cores (DMMA,
-# IEEE float64).
+# IEEE float64); bf16 989 TFLOP/s dense on the tensor cores (phase 20's
+# one-pass product).
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12, torch.bfloat16: 989e12}
 
 
 def _bound(nbytes, flops, dtype):
@@ -1693,6 +1715,242 @@ def phase_sharded(dev, m=SHARD_CFG4[0], n=SHARD_CFG4[1], B5=SHARD_CFG5_B):
     return out
 
 
+# Phase 20: matmul_precision on the card.  Every mode, and bench.py's own
+# bf16 commit setting (bench.py:326-329: quality_gate off, default seam).
+PREC_MODES = (None, "highest", "float32", "bfloat16", "tensorfloat32")
+PREC_IEEE = (None, "highest", "float32")
+# the large rung's bar on max |x − x_true| in every mode (PERF.md §2)
+PREC_LARGE_BAR = 1e-3
+# substrings of the names the profiler gives cuBLAS's GEMM kernels on the card
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def _gemm_ms(events):
+    """Device ms of the GEMM kernels among profiler events."""
+    return sum(e.time_range.elapsed_us() for e in events
+               if any(k in e.name.lower() for k in GEMM_NAMES)) / 1e3
+
+
+def prec_large_rung(dev):
+    """Phase 20's large rung (``bench.py``'s 8192×1024, float32, GN,
+    condensed, ``chol``, ``max_iter=30``) under each mode at the default
+    seam, in bench.py's bf16 commit setting, and under 'bfloat16' at the
+    kernel seam: a first solve, three warm ones (host wall with a
+    synchronize before each clock read, and the CUDA-event span), one under
+    ``torch.profiler`` (GEMM device time, busy time, top kernels).  Every
+    solve ``first_order`` with max |x − x_true| ≤ ``PREC_LARGE_BAR``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cannoles_tpu_torch import CaNNOLeSSolver
+    from cannoles_tpu_torch.models.families import large_rung_problem
+    from cannoles_tpu_torch.ops import block_chol as bc
+
+    pb, x_true, _ = large_rung_problem(dtype=torch.float32, device=dev)
+    xt = torch.as_tensor(x_true, device=dev, dtype=torch.float64)
+    runs = [(f"mode {mp}", dict(matmul_precision=mp, block_size=256)) for mp in PREC_MODES]
+    runs += [("bfloat16, quality_gate=False (bench.py)", dict(matmul_precision="bfloat16", quality_gate=False)),
+             ("bfloat16, kernel seam", dict(matmul_precision="bfloat16", block_size=256, pallas_chol_min=0))]
+    out = {}
+    for label, kw in runs:
+        s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol",
+                           dtype=torch.float32, device=dev, **kw)
+        kernel_seam = kw.get("pallas_chol_min") == 0
+        l0 = bc.FUSED_LAUNCHES
+
+        def solve():
+            st = s.solve(max_iter=30, max_time=600.0)
+            err = float((torch.as_tensor(st.solution, device=dev, dtype=torch.float64) - xt).abs().max())
+            if st.status != "first_order" or not err <= PREC_LARGE_BAR:
+                raise AssertionError(f"large rung, {label}: {st.status}, max |x - x_true| {err}")
+            return st, err
+
+        solve()
+        walls, spans = [], []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            st, err = solve()
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            spans.append(a.elapsed_time(b))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not events:
+            raise AssertionError(f"large rung, {label}: torch.profiler recorded no device operation")
+        busy = _busy_s([(e.time_range.start, e.time_range.end) for e in events])
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        launches = bc.FUSED_LAUNCHES - l0
+        if (launches > 0) != kernel_seam:
+            raise AssertionError(f"large rung, {label}: {launches} fused Cholesky kernel launches")
+        ss = st.solver_specific
+        row = dict(status=st.status, iter=st.iter, nfact=ss["nfact"], nlinsolve=ss["nlinsolve"], err=err,
+                   warm_walls_s=walls, event_ms=spans, gemm_ms=_gemm_ms(events), busy_ms=busy * 1e3,
+                   launches=launches, top_kernels_ms={k[:90]: v for k, v in top})
+        _log(f"  large rung, {label}: {st.status}, iter {st.iter}, nfact {ss['nfact']}, "
+             f"max |x - x_true| {err:.3e}, warm walls {', '.join(f'{w:.4f}' for w in walls)} s, "
+             f"CUDA-event spans {', '.join(f'{t:.3f}' for t in spans)} ms, GEMM {row['gemm_ms']:.3f} ms "
+             f"and busy {row['busy_ms']:.3f} ms of the profiled solve, fused kernel launches {launches}")
+        for kname, ms in top:
+            _log(f"    {ms:.3f} ms  {kname[:100]}")
+        out[label] = row
+    return out
+
+
+def prec_ba(dev):
+    """Phase 20's BA rung (phase 5's 256 scenes, N = 73, ``pallas``) under
+    each mode, and under 'bfloat16' with the quality gate off: solved count
+    and the fused LDLᵀ kernel's launches; at least 99% solved under the IEEE
+    modes, the counts of the others recorded."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
+    from cannoles_tpu_torch.models.families import bundle_adjustment_batch
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+
+    pb, x0s, datas, x_true = bundle_adjustment_batch(256, 3, 16, dtype=torch.float32, device=dev)
+    B = x0s.shape[0]
+    runs = [(f"mode {mp}", dict(matmul_precision=mp)) for mp in PREC_MODES]
+    runs.append(("bfloat16, quality_gate=False", dict(matmul_precision="bfloat16", quality_gate=False)))
+    out = {}
+    for label, kw in runs:
+        solver = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="pallas",
+                                dtype=torch.float32, device=dev, **kw)
+        l0 = fl.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=40)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fl.LAUNCHES - l0
+        summ = res.summary()
+        ok = res.solved_mask()
+        err = float(np.abs(res.solution[ok] - x_true[ok]).max()) if ok.any() else float("nan")
+        _log(f"  BA rung, {label}: solved {summ['solved']}/{B}, mean_iter {summ['mean_iter']:.3f}, "
+             f"max |x - x_true| on solved lanes {err:.3e}, wall {wall:.3f} s, LDLT kernel launches {launches}")
+        if launches <= 0:
+            raise AssertionError(f"BA rung, {label}: the fused LDLT kernel was not launched")
+        if kw["matmul_precision"] in PREC_IEEE and summ["solved"] < 0.99 * B:
+            raise AssertionError(f"BA rung, {label}: solved {summ['solved']}/{B} < 99%")
+        out[label] = dict(solved=summ["solved"], B=B, mean_iter=summ["mean_iter"], err=err, wall_s=wall,
+                          launches=launches)
+    return out
+
+
+def prec_route(dev):
+    """The card's one-pass bf16 product (``critical_matmul(a, b,
+    'bfloat16')``) against its plain version ``bf16_pass_reference`` at the
+    JᵀJ shapes of the large rung and the BA rung.  Both compute exact
+    products of the same bf16 operands and sum them in float32 in another
+    order, so each entry may differ by at most 2·K·u·(|a|·|b|) (K the inner
+    dimension, u = 2⁻²⁴: the worst case of both sums).  Times (CUDA events)
+    of the route, the plain version, and the IEEE and TF32 float32 GEMMs."""
+    from cannoles_tpu_torch.core.solver import _add_batch_axis
+    from cannoles_tpu_torch.models.families import bundle_adjustment_batch, large_rung_problem
+    from cannoles_tpu_torch.utils.precision import bf16_pass_reference, critical_matmul, matmul_mode
+
+    pb, _, _ = large_rung_problem(dtype=torch.float32, device=dev)
+    JL = pb.Jt(pb.x0[None], _add_batch_axis(pb.data, dev))
+    pbb, x0s, datas, _ = bundle_adjustment_batch(256, 3, 16, dtype=torch.float32, device=dev)
+    JB = pbb.Jt(x0s, datas)
+    out = {}
+    for name, a in (("large rung JtJ", JL), ("BA rung JtJ", JB)):
+        b = a.mT
+        B, n, K = a.shape
+        got = critical_matmul(a, b, "bfloat16")
+        ref = bf16_pass_reference(a, b)
+        with matmul_mode("highest"):
+            bound = 2 * K * 2.0**-24 * (a.bfloat16().float().abs() @ b.bfloat16().float().abs())
+            ieee = a @ b
+        if got.dtype != torch.float32 or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"bf16 route, {name}: {got.dtype} {tuple(got.shape)}")
+        over = int(((got - ref).abs() > bound).sum())
+        rel, err = _rel(got, ref)
+        rel_ieee, _ = _rel(got, ieee)
+        route_ms = _events_ms(lambda: critical_matmul(a, b, "bfloat16"))
+        plain_ms = _events_ms(lambda: bf16_pass_reference(a, b))
+        with matmul_mode("highest"):
+            ieee_ms = _events_ms(lambda: a @ b)
+        with matmul_mode("tensorfloat32"):
+            tf32_ms = _events_ms(lambda: a @ b)
+        # JᵀJ reads J once (float32) and writes the float32 result
+        bound_ms, by = _bound(4 * B * n * (K + n), 2 * B * n * n * K, torch.bfloat16)
+        _log(f"  bf16 route, {name} {tuple(a.shape)}x{tuple(b.shape)}: entries over 2Ku(|a||b|) {over}, "
+             f"max |route - plain| {err:.3e} ({rel:.3e} of the lane's max |plain|), against the IEEE "
+             f"product {rel_ieee:.3e}; route {route_ms:.4f} ms, plain {plain_ms:.4f} ms, IEEE f32 GEMM "
+             f"{ieee_ms:.4f} ms, TF32 GEMM {tf32_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+        if over:
+            raise AssertionError(f"bf16 route, {name}: {over} entries outside 2Ku(|a||b|) of the plain version")
+        out[name] = dict(shape=list(a.shape), over=over, max_abs_err=err, rel_err=rel, rel_vs_ieee=rel_ieee,
+                         route_ms=route_ms, plain_ms=plain_ms, ieee_ms=ieee_ms, tf32_ms=tf32_ms,
+                         bound_ms=bound_ms, bound_by=by)
+    return out
+
+
+def prec_pinned(dev):
+    """The sites that the JAX package pins to 'highest', called inside a
+    TF32 scope and inside an IEEE one, must give the same bits: the gate
+    residual, one ``chol`` attempt at each seam (S = δI + ZᵀZ, the
+    triangular and Cholesky solves, ``block_cho_solve``) on a condensed
+    system n = 1024, p = 8, and one ``ldlt`` attempt (triangular solves and
+    the refinement product) at N = 200; an unpinned product of the same
+    operands must change, or TF32 was never on."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, nls_problem
+    from cannoles_tpu_torch.utils.precision import matmul_mode
+    from cannoles_tpu_torch.utils.testing import quasi_definite
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(20)
+    n, p = 1024, 8
+    G = rng.normal(size=(n, n)) / np.sqrt(n)
+    Jc = rng.normal(size=(p, n))
+    K = np.block([[G @ G.T + np.eye(n), Jc.T], [Jc, -1e-2 * np.eye(p)]])[None]
+    K, rhs = torch.as_tensor(K, **f32), torch.as_tensor(rng.normal(size=(1, n + p)), **f32)
+    sol = torch.as_tensor(rng.normal(size=(1, n + p)), **f32)
+    pb = nls_problem(lambda x: x, torch.zeros(n, **f32), n, lambda x: x[:p], np.zeros(p), np.zeros(p), device=dev)
+    W2, r2, n1 = quasi_definite(1, 200, seed=20, skip=False)
+    pb2 = nls_problem(lambda x: x, torch.zeros(n1, **f32), 200 - n1, device=dev)
+    chol = {pcm: CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol",
+                                matmul_precision="tensorfloat32", pallas_chol_min=pcm) for pcm in (None, 0)}
+    ldlt = CaNNOLeSSolver(pb2, method="gauss_newton", linsolve="ldlt", matmul_precision="tensorfloat32")
+    W2, r2 = torch.as_tensor(W2, **f32), torch.as_tensor(r2, **f32)
+    sites = {
+        "gate residual": lambda: (chol[None]._gate_residual(K, sol, rhs),),
+        "chol attempt, default seam": lambda: chol[None]._attempt_raw(K, rhs),
+        "chol attempt, kernel seam": lambda: chol[0]._attempt_raw(K, rhs),
+        "ldlt attempt": lambda: ldlt._attempt_raw(W2, r2),
+    }
+    out = {}
+    for name, fn in list(sites.items()) + [("unpinned product (control)", lambda: (K @ K,))]:
+        with matmul_mode("tensorfloat32"):
+            a = fn()
+        with matmul_mode("highest"):
+            b = fn()
+        torch.cuda.synchronize()
+        out[name] = all(torch.equal(x, y) for x, y in zip(a, b))
+    _log(f"  pinned sites bit-equal under TF32: {out}")
+    bad = [k for k in sites if not out[k]]
+    if bad or out["unpinned product (control)"]:
+        raise AssertionError(f"pinned sites: {bad} differ under TF32, control equal: "
+                             f"{out['unpinned product (control)']}")
+    return out
+
+
+def phase_precision(dev):
+    """Phase 20's checks after its paths: the route against its plain
+    version, the pinned sites, and float64 card = CPU under the two reduced
+    modes (phase 6's family and settings)."""
+    out = dict(route=prec_route(dev), pinned=prec_pinned(dev))
+    out["f64_parity"] = {mp: phase_parity(dev, mp) for mp in ("bfloat16", "tensorfloat32")}
+    return out
+
+
 def _stop(runs):
     for p, f in runs.values():
         if p.poll() is None:
@@ -1802,6 +2060,18 @@ def main() -> int:
         raise AssertionError(f"the chol path launched the fused kernel {fused_launches} and the "
                              f"block kernel {block_launches} times")
 
+    # phase 20 before the pool, so that its walls are not shared with it
+    fl.LAUNCHES = bc.FUSED_LAUNCHES = 0
+    _phase("phase 20: matmul_precision on the card (large rung, BA rung)")
+    t20 = time.perf_counter()
+    prec = dict(large_rung=prec_large_rung(dev), ba=prec_ba(dev))
+    prec_launches = dict(fused_ldlt=fl.LAUNCHES, chol_fused=bc.FUSED_LAUNCHES)
+    _log(f"  phase 20's kernel launches: {prec_launches}")
+    _phase("phase 20: the bf16 route vs its plain version, the pinned sites, float64 card vs CPU")
+    prec.update(phase_precision(dev))
+    prec["wall_s"] = time.perf_counter() - t20
+    _log(f"  phase 20 took {prec['wall_s']:.1f} s")
+
     # the battery's solves are host-bound: with 8 workers on an H100's
     # 8-CPU host every row ran at half the speed it has beside two others
     # (biggs_exp6_24 on the CPU: 318 s against 160 s), and its card row,
@@ -1868,6 +2138,8 @@ def main() -> int:
         "deadline": deadline,
         # phase 19: vsolve(mesh=) over 4 ranks on BASELINE config 5
         "launches_config5_per_rank": sharded["cfg5"]["launches"],
+        # phase 20: the BA rung under the six matmul_precision settings
+        "launches_precision": prec_launches["fused_ldlt"],
     }, {
         "name": "chol_fused",
         "route": "cuda",
@@ -1882,6 +2154,8 @@ def main() -> int:
         "ba_16x300": ba_large,
         # phase 19: solve_row_sharded at the kernel seam on BASELINE config 4
         "launches_config4_per_rank": sharded["launches_cfg4_per_rank"],
+        # phase 20: the large rung under 'bfloat16' at the kernel seam
+        "launches_precision": prec_launches["chol_fused"],
     }, {
         "name": "chol_block",
         "route": "cuda",
@@ -1899,7 +2173,8 @@ def main() -> int:
         "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor: the block kernel + torch.matmul)",
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
-        "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"}}))
+        "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},
+        "matmul_precision": prec}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -441,3 +441,80 @@ def test_launch_backend_on_card(cuda):
         for got in launch(torch_ranks.backend_probe, k):
             assert backend in got["backend"], got
             assert got["cpu"] == [float(k)] * 2 and got["card"] == [float(k)] * 2, got
+
+
+MODES = [None, "highest", "float32", "bfloat16", "tensorfloat32"]
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 8192), (256, 66, 96)], ids=["large_rung", "ba_rung"])
+def test_bf16_route_matches_plain_on_card(cuda, shape):
+    """The condensation's one-pass bf16 product (cuBLAS, float32 result) at
+    the two rungs' JᵀJ shapes against ``bf16_pass_reference``: both take
+    exact products of the same bf16 operands and sum them in float32, so
+    each entry lies within 2·K·u·(|a|·|b|) of the other (K the inner
+    dimension, u = 2⁻²⁴); the result is not rounded to bf16."""
+    from cannoles_tpu_torch.utils.precision import bf16_pass_reference, critical_matmul, matmul_mode
+
+    rng = np.random.default_rng(sum(shape))
+    a = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+    b = a.mT
+    got = critical_matmul(a, b, "bfloat16")
+    ref = bf16_pass_reference(a, b)
+    with matmul_mode("highest"):
+        bound = 2 * shape[-1] * 2.0**-24 * (a.bfloat16().float().abs() @ b.bfloat16().float().abs())
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert bool(((got - ref).abs() <= bound).all())
+    assert not torch.equal(got, got.bfloat16().float())
+
+
+def test_pinned_sites_bit_equal_under_tf32(cuda):
+    """The sites the JAX package pins to 'highest' give the same bits
+    inside a TF32 scope and an IEEE one: the gate residual, a ``chol``
+    attempt at each seam (S = δI + ZᵀZ, triangular and Cholesky solves) and
+    an ``ldlt`` attempt; an unpinned product of the same operands does not."""
+    from cannoles_tpu_torch import nls_problem
+    from cannoles_tpu_torch.utils.precision import matmul_mode
+
+    f32 = dict(dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(20)
+    n, p = 512, 6
+    G = rng.normal(size=(n, n)) / np.sqrt(n)
+    Jc = rng.normal(size=(p, n))
+    K = torch.as_tensor(np.block([[G @ G.T + np.eye(n), Jc.T], [Jc, -1e-2 * np.eye(p)]])[None], **f32)
+    rhs, sol = (torch.as_tensor(rng.normal(size=(1, n + p)), **f32) for _ in range(2))
+    pb = nls_problem(lambda x: x, torch.zeros(n, **f32), n, lambda x: x[:p], np.zeros(p), np.zeros(p))
+    chol = [CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol",
+                           matmul_precision="tensorfloat32", pallas_chol_min=pcm) for pcm in (None, 0)]
+    W2, r2, n1 = quasi_definite(1, 120, seed=21, skip=False)
+    pb2 = nls_problem(lambda x: x, torch.zeros(n1, **f32), 120 - n1)
+    ldlt = CaNNOLeSSolver(pb2, method="gauss_newton", linsolve="ldlt", matmul_precision="tensorfloat32")
+    W2, r2 = torch.as_tensor(W2, **f32), torch.as_tensor(r2, **f32)
+    sites = [lambda: (chol[0]._gate_residual(K, sol, rhs),), lambda: chol[0]._attempt_raw(K, rhs),
+             lambda: chol[1]._attempt_raw(K, rhs), lambda: ldlt._attempt_raw(W2, r2)]
+
+    def both(fn):
+        with matmul_mode("tensorfloat32"):
+            a = fn()
+        with matmul_mode("highest"):
+            b = fn()
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    assert [both(fn) for fn in sites] == [True] * len(sites)
+    assert not both(lambda: (K @ K,))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_vsolve_f64_on_card_matches_cpu_under_each_mode(cuda, mode):
+    """float64 is IEEE float64 under every mode: the bench family through
+    vsolve on the card and the CPU, per-lane status and counters equal,
+    solutions within 1e-10."""
+    x0, d = lm_bench_batch(32, seed=5)
+    out = {}
+    for where in (cuda, torch.device("cpu")):
+        pb = lm_bench_family(torch.float64, where)
+        s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", matmul_precision=mode)
+        out[where.type] = vsolve(pb, x0, data_batch=d, solver=s, max_iter=50, rescue=True)
+    g, c = out["cuda"], out["cpu"]
+    for f in ("status", "iter", "nfact", "nbk", "nlinsolve", "msg"):
+        assert torch.equal(getattr(g.states, f).cpu(), getattr(c.states, f)), f
+    np.testing.assert_allclose(g.solution, c.solution, rtol=0, atol=1e-10)
