@@ -244,7 +244,18 @@ class MatrixFreeSolver:
         self.host_syncs = 0
         self._deadline: Optional[float] = None
 
-    _any = CaNNOLeSSolver._any
+    def _any(self, mask) -> bool:
+        """One host sync (counted in ``host_syncs``): whether any lane of
+        ``mask`` is set; inside ``solve()`` also the wall-clock budget."""
+        self.host_syncs += 1
+        hit = bool(mask.any())
+        if self._deadline is not None:
+            # on a row mesh every rank leaves the step at the same sync
+            hit, spent = self._agree(hit, time.time() > self._deadline)
+            if spent:
+                raise _BudgetSpent
+        return hit
+
     _agree = CaNNOLeSSolver._agree
     make_config = CaNNOLeSSolver.make_config
     _dual_scaling = CaNNOLeSSolver._dual_scaling

@@ -1,0 +1,210 @@
+"""The solver's straight-line segments between host checks, run eagerly or
+replayed as CUDA graphs.
+
+A solve is a chain of segments (init, the system build and first ρ attempt,
+one ρ attempt, the trial step, one line-search trip, the acceptance, the
+outer bookkeeping) separated by host checks, the reads of a few flags that
+decide which segment runs next.  A segment is a function of a
+:class:`Bank`, the named tensors that the solve keeps between segments, and
+returns the entries it replaces.  No segment reads the device on the host
+except where ``bank._host_reads`` allows it (CGLS's early exit, which
+changes no result).
+
+* Eager route (the CPU, a row mesh, ``linsolve='cpp'``): the returned
+  tensors replace the entries; nothing is copied.
+* Graph route (a CUDA device otherwise): every entry is a persistent
+  buffer.  The first run of a segment is eager, and its results are copied
+  into the buffers; then the segment is captured once, with those copies,
+  as a ``torch.cuda.CUDAGraph`` that reads and writes the buffers in place,
+  and every later run is one replay with no copies in.  A segment marked
+  ``eager`` (the eigh attempts: cuSOLVER's ``syevj`` checks its error code
+  on the host) runs eagerly with the same copies.  A segment whose capture
+  fails raises :class:`GraphCaptureError`, naming the problem and the
+  segment; the solve never falls back to the eager route on its own.
+  Every allocation inside a capture is a temporary (the buffers exist
+  before it), so the graphs of one solver share one memory pool
+  (``Bank(pool=)``), whatever order they replay in.
+
+The kernel launch counters of ``ops`` count at capture time, where nothing
+runs, so a capture records what it launched and each replay adds it.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+__all__ = ["Bank", "GraphCaptureError", "run_segment", "clone_tree", "load", "counters", "restore_counters"]
+
+
+class GraphCaptureError(RuntimeError):
+    """A segment of a solve could not be captured as a CUDA graph."""
+
+
+class Bank:
+    """A solve's tensors between segments, as attributes, on ``route``
+    ('eager' or 'graph').  On the graph route the entries are persistent
+    buffers and the segments are captured into one memory pool, shared by
+    the banks that share the holder ``pool`` (a one-item list, filled at
+    the first capture)."""
+
+    def __init__(self, route: str, label: str, pool=None):
+        self._graphed = route == "graph"
+        self._host_reads = route == "eager"
+        self._label = label
+        self._pool = pool if pool is not None else [None]
+        self._graphs: dict = {}
+
+    def replays(self) -> dict:
+        """Replays per captured segment since the bank was made."""
+        return {name: g.replays for name, g in self._graphs.items()}
+
+
+def _leaves(v):
+    if v is None:
+        return []
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, dict):
+        return [x for k in v for x in _leaves(v[k])]
+    if isinstance(v, (list, tuple)):
+        return [x for e in v for x in _leaves(e)]
+    return []
+
+
+def clone_tree(v):
+    """A copy of a pytree of tensors (NamedTuple, tuple, list, dict)."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: clone_tree(x) for k, x in v.items()}
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*[clone_tree(x) for x in v])
+    if isinstance(v, (list, tuple)):
+        return type(v)(clone_tree(x) for x in v)
+    return v
+
+
+def _store(bank: Bank, upd: dict, capturing: bool = False):
+    """Copy ``upd`` into the bank's buffers; an entry seen for the first
+    time gets buffers of its own (never inside a capture: the buffers must
+    outlive the graph's temporaries).  A source that shares storage with a
+    buffer written here is copied first, so that every entry gets the value
+    the segment computed, whatever the order of the copies."""
+    pairs = []
+    for k, v in upd.items():
+        cur = bank.__dict__.get(k)
+        old = _leaves(cur)
+        new = _leaves(v)
+        if cur is None or len(old) != len(new) or any(a.shape != b.shape for a, b in zip(old, new)):
+            if capturing:
+                raise RuntimeError(f"entry {k!r} has no buffer of its shape from the segment's eager run")
+            bank.__dict__[k] = clone_tree(v)
+            continue
+        pairs += [(d, s) for d, s in zip(old, new) if d is not s]
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in written else s) for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)
+
+
+def load(bank: Bank, **entries):
+    """Put a run's inputs into the bank (copied into its buffers on the
+    graph route)."""
+    if bank._graphed:
+        _store(bank, entries)
+    else:
+        bank.__dict__.update(entries)
+
+
+def counters() -> dict:
+    """The custom kernels' launch counters, by name."""
+    from ..ops import block_chol, fused_ldlt
+
+    return {
+        "fused_ldlt": fused_ldlt.LAUNCHES,
+        "chol_fused": block_chol.FUSED_LAUNCHES,
+        "chol_block": block_chol.BLOCK_LAUNCHES,
+        **{("fused_ldlt", k): n for k, n in fused_ldlt.BY_SHAPE.items()},
+    }
+
+
+def _credit(delta: dict):
+    from ..ops import block_chol, fused_ldlt
+
+    for k, n in delta.items():
+        if k == "fused_ldlt":
+            fused_ldlt.LAUNCHES += n
+        elif k == "chol_fused":
+            block_chol.FUSED_LAUNCHES += n
+        elif k == "chol_block":
+            block_chol.BLOCK_LAUNCHES += n
+        else:
+            fused_ldlt.BY_SHAPE[k[1]] = fused_ldlt.BY_SHAPE.get(k[1], 0) + n
+
+
+def restore_counters(before: dict):
+    """Put the launch counters back to ``counters()``'s reading."""
+    from ..ops import block_chol, fused_ldlt
+
+    fused_ldlt.LAUNCHES = before["fused_ldlt"]
+    block_chol.FUSED_LAUNCHES = before["chol_fused"]
+    block_chol.BLOCK_LAUNCHES = before["chol_block"]
+    fused_ldlt.BY_SHAPE.clear()
+    fused_ldlt.BY_SHAPE.update({k[1]: n for k, n in before.items() if isinstance(k, tuple)})
+
+
+class _Graph:
+    def __init__(self, graph, delta):
+        self.graph = graph
+        self.delta = delta
+        self.replays = 0
+
+    def replay(self):
+        self.graph.replay()
+        self.replays += 1
+        if self.delta:
+            _credit(self.delta)
+
+
+# seconds spent capturing graphs, over every bank of the process
+CAPTURE_SECONDS = [0.0]
+
+
+def _capture(bank: Bank, name: str, fn) -> _Graph:
+    before = counters()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    if bank._pool[0] is None:
+        bank._pool[0] = torch.cuda.graph_pool_handle()
+    try:
+        with torch.cuda.graph(graph, pool=bank._pool[0]):
+            _store(bank, fn(bank), capturing=True)
+    except Exception as e:  # noqa: BLE001 - re-raised with the segment named
+        restore_counters(before)
+        raise GraphCaptureError(
+            f"{bank._label}: segment {name!r} cannot be captured as a CUDA graph "
+            f"({type(e).__name__}: {e}); a residual or constraint that builds tensors "
+            "from host data (torch.tensor(...), .item(), Python branches on values) must "
+            "make them when the problem is built"
+        ) from e
+    after = counters()
+    restore_counters(before)
+    CAPTURE_SECONDS[0] += time.perf_counter() - t0
+    delta = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    return _Graph(graph, delta)
+
+
+def run_segment(bank: Bank, name: str, fn, eager: bool = False):
+    """Run one segment ``fn(bank) -> {entry: value}`` on the bank's route."""
+    if not bank._graphed:
+        bank.__dict__.update(fn(bank))
+        return
+    g = bank._graphs.get(name)
+    if g is not None:
+        g.replay()
+        return
+    _store(bank, fn(bank))  # the first run, eager: it also warms the libraries up
+    if not eager:
+        bank._graphs[name] = _capture(bank, name, fn)

@@ -8,11 +8,21 @@ count depends on the data, so here the state machine is written batched:
 * every state tensor has a leading batch axis B; a single solve is B = 1;
 * every ``while_loop`` is a Python loop over a per-lane ``active`` mask,
   which is the parent loop's mask AND the loop's own condition.  Updates go
-  through ``torch.where``, and the loop ends when no lane is active (one
-  host sync, counted in ``CaNNOLeSSolver.host_syncs``);
+  through ``torch.where``, and the loop ends when no lane is active;
 * a lane that is not active keeps its state bit for bit, which is what a
   lane of JAX's batched ``while_loop`` does, so each lane follows the
-  trajectory it would follow alone.
+  trajectory it would follow alone;
+* the loops' bodies are segments between host checks (``core/segments.py``):
+  init; the system build with the first ρ attempt; one attempt; the trial
+  point; one line-search trip; the acceptance; the outer bookkeeping.  A
+  host check reads a segment's flags in one sync (counted in
+  ``CaNNOLeSSolver.host_syncs``).  Where the JAX package jits the outer
+  step, the port on a CUDA device captures each segment once as a CUDA
+  graph and replays it (``route == "graph"``); on the CPU, with a row mesh
+  and with ``linsolve='cpp'`` the segments run eagerly (``route ==
+  "eager"``; ``route_reason`` says why).  Both routes give the same bits.
+  ``solve()`` pays a solver's one-time costs before its clock
+  (``_warm_up``, the counterpart of the JAX package's ``_outer_warm``).
 
 ``linsolve='chol'`` is the two-level Cholesky of the condensed system:
 ``torch.linalg.cholesky`` below ``pallas_chol_min`` (the counterpart of
@@ -45,8 +55,10 @@ The XLA/TPU seams ``_scalar_mode``, ``_reuse_trial_linearization`` and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
+from types import SimpleNamespace
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -62,6 +74,7 @@ from ..params import F_BLOWUP, MAX_DLAMBDA, SMAX, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_1, norm_2, norm_inf
 from ..utils.precision import check_mode, critical_matmul, gate_eps, matmul_mode, scoped
+from .segments import Bank, clone_tree, counters, load, restore_counters, run_segment
 from .status import MSG, ExecutionStats, Status, get_status_code, status_name
 
 __all__ = [
@@ -172,7 +185,11 @@ TENSOR_FIELDS = SolverState._fields[:-1]
 
 
 def _sel(mask, a, b):
-    """torch.where over a leading batch axis: a where mask, else b."""
+    """torch.where over a leading batch axis: a where mask, else b (``a``
+    itself where the two sides are one tensor, as a state field that a step
+    left alone is: the same bits without the operation)."""
+    if a is b:
+        return a
     return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
@@ -204,8 +221,9 @@ def _cho_solve(L, b):
     return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
 
 
-class _InnerCarry(NamedTuple):
-    s: SolverState
+class _Hat(NamedTuple):
+    """The inner loop's carry beside the state."""
+
     normdualhat: torch.Tensor
     normprimalhat: torch.Tensor
     combined_hat: torch.Tensor
@@ -213,11 +231,59 @@ class _InnerCarry(NamedTuple):
     tired: torch.Tensor
 
 
+class _LS(NamedTuple):
+    """The line search's trial point and its bookkeeping."""
+
+    xt: torch.Tensor
+    Ft: torch.Tensor
+    ct: torch.Tensor
+    phit: torch.Tensor
+    alpha: torch.Tensor
+    nbk: torch.Tensor
+    fail: torch.Tensor
+
+
+class _LSFixed(NamedTuple):
+    """What the line search's trips read and do not change."""
+
+    epsk: torch.Tensor
+    eta_ls: torch.Tensor
+    Dphi: torch.Tensor
+    not_descent: torch.Tensor
+    phix: torch.Tensor
+    ls_lanes: torch.Tensor
+
+
+def _flags(a, b=None):
+    """A host check's flags: whether any lane of ``a`` (and of ``b``) is
+    set, as one (2,) tensor, read in one sync."""
+    return torch.stack([a.any(), (a if b is None else b).any()])
+
+
+def _layout(tree):
+    """The shapes and dtypes of a data pytree (a bank's key)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _layout(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_layout(v) for v in tree)
+    return repr(tree)
+
+
 class _Rho(NamedTuple):
     rho: torch.Tensor
     sol: torch.Tensor
     success: torch.Tensor
     nfact: torch.Tensor
+
+
+# banks (captured segments with their buffers) a solver keeps on the graph
+# route: the batch sizes of a vsolve's chunks, its last chunk and a few
+# rescue sizes
+MAX_BANKS = 8
 
 
 class _BudgetSpent(Exception):
@@ -317,20 +383,29 @@ class CaNNOLeSSolver:
                 "use method='gauss_newton' (reference :Newton_noFHess)"
             )
         self.last_state: Optional[SolverState] = None
-        # host syncs (mask.any() reads) since construction
+        # host checks (reads of a segment's flags, one sync each) since
+        # construction
         self.host_syncs = 0
-        # solve()'s wall-clock deadline (time.time()), read at every host sync
+        # solve()'s wall-clock deadline (time.time()), read at every host check
         self._deadline: Optional[float] = None
-
-    def _any(self, mask) -> bool:
-        self.host_syncs += 1
-        hit = bool(mask.any())
-        if self._deadline is not None:
-            # on a row mesh every rank leaves the step at the same sync
-            hit, spent = self._agree(hit, time.time() > self._deadline)
-            if spent:
-                raise _BudgetSpent
-        return hit
+        # where the segments run (``core/segments.py``): eagerly with a row
+        # mesh (its all-reduces go through the host), with linsolve='cpp'
+        # (a host round trip) and on the CPU; else replayed CUDA graphs
+        if mesh is not None:
+            self.route, self.route_reason = "eager", "mesh"
+        elif linsolve == "cpp":
+            self.route, self.route_reason = "eager", "cpp"
+        elif self.device.type == "cuda":
+            self.route, self.route_reason = "graph", "cuda"
+        else:
+            self.route, self.route_reason = "eager", "cpu"
+        # the graph route's banks by (B, data layout), the most recently
+        # used last, and the one memory pool of their graphs (made at the
+        # first capture)
+        self._banks: collections.OrderedDict = collections.OrderedDict()
+        self._pool: list = [None]
+        # whether solve() has paid its one-time costs (_warm_up)
+        self._warm = False
 
     def _agree(self, *flags: bool):
         """Host decisions that the ranks of a row mesh take together: each
@@ -546,16 +621,18 @@ class CaNNOLeSSolver:
         sol = torch.cat([zx, zl], -1)
         return sol, okM & okS & torch.isfinite(sol).all(-1)
 
-    def _rho_ladder(self, attempt, rhs, rho_old, active):
+    # ------------------------------------------------------------------
+    # the rho ladder, one segment per attempt
+    # ------------------------------------------------------------------
+    def _ladder_start(self, rho_old, rhs, active) -> dict:
         """The reference's exact rho schedule around one factorization seam:
         try rho=0; on inertia failure rho ← rho0 (first time) or
         max(rho_min, κdec·rho_old); escalate by κlargeinc/κinc until success
         or rho > rho_max.  ``nfact`` counts the attempts made with
-        rho ≤ rho_max.  Lanes outside ``active`` make no attempt; when no
-        lane is active the ladder costs no trip."""
+        rho ≤ rho_max.  Lanes outside ``active`` make no attempt.  Returns
+        the schedule and the empty carry as bank entries."""
         pr = self.params
         B = rhs.shape[0]
-        zero = rhs.new_zeros((B,))
         first_rho = torch.where(
             rho_old == 0,
             torch.full_like(rho_old, pr.rho0),
@@ -566,64 +643,129 @@ class CaNNOLeSSolver:
             torch.full_like(rho_old, pr.kappa_large_inc),
             torch.full_like(rho_old, pr.kappa_inc),
         )
-        c = _Rho(zero, torch.zeros_like(rhs), torch.zeros_like(active),
+        c = _Rho(rhs.new_zeros((B,)), torch.zeros_like(rhs), torch.zeros_like(active),
                  torch.zeros((B,), dtype=torch.int32, device=rhs.device))
-        k = 0
-        while True:
-            go = active if k == 0 else active & (~c.success) & (c.rho <= pr.rho_max)
-            if not self._any(go):
-                return c
-            rho = zero if k == 0 else (first_rho if k == 1 else c.rho * inc)
-            do = rho <= pr.rho_max
-            sol_t, suc_t = attempt(rho)
-            new = _Rho(rho, _sel(do, sol_t, c.sol), do & suc_t, c.nfact + do.to(torch.int32))
-            c = _sel_tuple(go, new, c)
-            k += 1
+        return dict(lad_first=first_rho, lad_inc=inc, lad_c=c, lad_act=active, lad_go=active)
 
-    def _newton_system(self, W0, rhs, rho_old, active, bad_direction=None):
-        """Inertia-corrected factorize-and-solve: the rho ladder around the
-        primary backend, plus (robust_fallback) an exact-inertia eigh ladder
-        for lanes that needed regularization, plus (descent_rescue, gate
-        off) a gated ladder for lanes whose successful step is not a descent
-        direction.  Returns (step, success, rho, rho_old_new, nfact)."""
+    def _ladder_step(self, kind, k, W0, rhs, t, go):
+        """Attempt ``k`` (0: rho = 0, 1: the first rho, 2: every later one)
+        on the lanes of ``go``; returns the carry and the next go mask."""
+        pr = self.params
+        c = t.lad_c
+        rho = rhs.new_zeros(c.rho.shape) if k == 0 else (t.lad_first if k == 1 else c.rho * t.lad_inc)
+        do = rho <= pr.rho_max
+        sol_t, suc_t = self._attempt_kind(kind, W0, rhs, rho)
+        new = _Rho(rho, _sel(do, sol_t, c.sol), do & suc_t, c.nfact + do.to(torch.int32))
+        c = _sel_tuple(go, new, c)
+        return c, t.lad_act & (~c.success) & (c.rho <= pr.rho_max)
+
+    def _attempt_kind(self, kind, W0, rhs, rho):
+        """One attempt on W0 + rho·I (x block): the primary backend
+        (``main``), the gated backend (``gated``) or eigh (``eigh``)."""
         pr = self.params
         n = self.problem.nvar
-        idx = torch.arange(n, device=W0.device)
-
-        def shifted(rho):
-            W = W0.clone()
-            W[:, idx, idx] = W0[:, idx, idx] + rho[:, None]
-            return W
-
-        def attempt(rho):
-            return self._attempt(shifted(rho), rhs)
-
-        def attempt_gated(rho):
-            W = shifted(rho)
+        W = W0.clone()
+        W.diagonal(dim1=-2, dim2=-1)[:, :n].add_(rho[:, None])
+        if kind == "main":
+            return self._attempt(W, rhs)
+        if kind == "gated":
             sol, suc = self._attempt_raw(W, rhs)
             return sol, suc & self._solve_quality_ok(W, sol, rhs)
+        fac = eigh_factor(W, pr.eig_tol)
+        sol = eigh_solve(fac, rhs, pr.eig_tol)
+        return sol, inertia_success(fac.vec, fac.mat, n, pr.eig_tol)
 
-        def attempt_eigh(rho):
-            fac = eigh_factor(shifted(rho), pr.eig_tol)
-            sol = eigh_solve(fac, rhs, pr.eig_tol)
-            return sol, inertia_success(fac.vec, fac.mat, n, pr.eig_tol)
+    def _attempt_seg(self, kind, k):
+        def seg(t):
+            c, go = self._ladder_step(kind, k, t.W0, t.rhs, t, t.lad_go)
+            return dict(lad_c=c, lad_go=go, flags=_flags(go))
 
-        def merge(out, out2, need, take):
-            nfact_all = out.nfact + torch.where(need, out2.nfact, torch.zeros_like(out2.nfact))
-            return _sel_tuple(take, out2, out)._replace(nfact=nfact_all)
+        return seg
 
-        out = self._rho_ladder(attempt, rhs, rho_old, active)
+    def _ladder(self, t, kind, k=0):
+        """Run the attempts of one ladder from attempt ``k``, one host check
+        after each (the one before attempt ``k`` was made by the caller)."""
+        while True:
+            kk = min(k, 2)
+            run_segment(t, f"attempt:{kind}:{kk}", self._attempt_seg(kind, kk),
+                      eager=kind == "eigh" or self.linsolve == "eigh")
+            k += 1
+            if not self._check(t.flags)[0]:
+                return
 
+    @staticmethod
+    def _merge(out, out2, need, take):
+        nfact_all = out.nfact + torch.where(need, out2.nfact, torch.zeros_like(out2.nfact))
+        return _sel_tuple(take, out2, out)._replace(nfact=nfact_all)
+
+    def _bad_direction(self, t, d):
+        """Lanes whose step is not a descent direction of the merit (the
+        same slope as the trial step's Dϕ; extrapolation iterations,
+        inner_iter == 0, never require descent)."""
+        n = self.problem.nvar
+        Dphi = _vdot(t.dphi_g, d[:, :n])
+        if self.problem.ncon > 0:
+            Dphi = Dphi - _vdot(d[:, :n], t.dphi_c)
+        return (Dphi >= 0) & (t.s.inner_iter != 0)
+
+    def _newton_system_segments(self, t):
+        """Inertia-corrected factorize-and-solve on ``t.W0``, ``t.rhs`` for
+        the lanes of ``t.do_solve``, after the first attempt (whose flags
+        the first check reads): the rho ladder around the primary backend,
+        then the fallback ladders.  Leaves the result in ``t.lad_c``."""
+        if self._check(t.flags)[0]:
+            self._ladder(t, "main", 1)
+        self._fallback_ladders(t, descent=True)
+
+    def _fallback_ladders(self, t, descent: bool):
+        """(robust_fallback) an exact-inertia eigh ladder for lanes that
+        needed regularization, and (descent_rescue with the gate off) a
+        gated ladder for lanes whose successful step is not a descent
+        direction."""
         if self.robust_fallback:
-            need = (out.rho != 0) | (~out.success)
-            out2 = self._rho_ladder(attempt_eigh, rhs, rho_old, active & need)
-            out = merge(out, out2, need, need & (out2.success | (~out.success)))
+            def rf_prep(t):
+                out = t.lad_c
+                need = (out.rho != 0) | (~out.success)
+                st = self._ladder_start(t.s.rho_old, t.rhs, t.do_solve & need)
+                return dict(lad_main=out, need=need, **st, flags=_flags(st["lad_act"]))
 
-        if bad_direction is not None and self.descent_rescue and not self.quality_gate:
-            bad = out.success & bad_direction(-out.sol)
-            outg = self._rho_ladder(attempt_gated, rhs, rho_old, active & bad)
-            out = merge(out, outg, bad, bad & outg.success & (~bad_direction(-outg.sol)))
+            def rf_merge(t):
+                out, out2, need = t.lad_main, t.lad_c, t.need
+                return dict(lad_c=self._merge(out, out2, need, need & (out2.success | (~out.success))))
 
+            run_segment(t, "rf_prep", rf_prep)
+            if self._check(t.flags)[0]:
+                self._ladder(t, "eigh")
+            run_segment(t, "rf_merge", rf_merge)
+        if descent and self.descent_rescue and not self.quality_gate:
+            def dr_prep(t):
+                out = t.lad_c
+                bad = out.success & self._bad_direction(t, -out.sol)
+                st = self._ladder_start(t.s.rho_old, t.rhs, t.do_solve & bad)
+                return dict(lad_main=out, need=bad, **st, flags=_flags(st["lad_act"]))
+
+            def dr_merge(t):
+                out, outg, bad = t.lad_main, t.lad_c, t.need
+                take = bad & outg.success & (~self._bad_direction(t, -outg.sol))
+                return dict(lad_c=self._merge(out, outg, bad, take))
+
+            run_segment(t, "dr_prep", dr_prep)
+            if self._check(t.flags)[0]:
+                self._ladder(t, "gated")
+            run_segment(t, "dr_merge", dr_merge)
+
+    def _newton_system(self, W0, rhs, rho_old, active):
+        """The ladders on one system as a function (eager, no descent
+        rescue; ``utils.profiling.stage_timings`` times it).  Returns
+        (step, success, rho, rho_old_new, nfact)."""
+        pr = self.params
+        t = Bank("eager", self.problem.name)
+        t.W0, t.rhs, t.do_solve, t.s = W0, rhs, active, SimpleNamespace(rho_old=rho_old)
+        t.__dict__.update(self._ladder_start(rho_old, rhs, active))
+        if self._check(_flags(active))[0]:
+            self._ladder(t, "main")
+        self._fallback_ladders(t, descent=False)
+        out = t.lad_c
         rho_old_new = torch.where(
             out.rho == 0, rho_old, torch.where(out.rho <= pr.rho_max, out.rho, rho_old)
         )
@@ -644,7 +786,7 @@ class CaNNOLeSSolver:
             return lam.new_ones(lam.shape[:1])
         return torch.clamp(norm_1(lam) / p, min=SMAX) / SMAX
 
-    def _small_res_recheck(self, s: SolverState) -> SolverState:
+    def _small_res_recheck(self, s: SolverState, check: bool) -> SolverState:
         """optimality_check_small_residual: re-estimate λ by CGLS at the
         current point and recompute the KKT residuals."""
         pb = self.problem
@@ -652,7 +794,7 @@ class CaNNOLeSSolver:
         Jxtr = self._rsum(_mv(s.JxT, r))
         if pb.ncon > 0:
             JcT = s.Jcx.transpose(-2, -1)
-            lam = cgls(JcT, Jxtr)
+            lam = cgls(JcT, Jxtr, check=check)
             dual = Jxtr - _mv(JcT, lam)
         else:
             lam = s.lam
@@ -663,12 +805,10 @@ class CaNNOLeSSolver:
             normdual=norm_inf(dual), normprimal=norm_inf(s.cx),
         )
 
-    def _recheck_where(self, mask, s: SolverState) -> SolverState:
+    def _recheck(self, mask, s: SolverState, check: bool) -> SolverState:
         """Small-residual re-check on the lanes of ``mask``, with the
         first-order test redone on the re-estimated multipliers."""
-        if not self._any(mask):
-            return s
-        s2 = self._small_res_recheck(s)
+        s2 = self._small_res_recheck(s, check)
         sd2 = self._dual_scaling(s2.lam)
         fo = torch.maximum(s2.normdual / sd2, s2.normprimal) <= s2.epstol
         return _sel_tuple(mask, s2._replace(first_order=fo), s)
@@ -676,11 +816,12 @@ class CaNNOLeSSolver:
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def _init_state(self, x0, lam0, cfg: RunConfig, data=None) -> SolverState:
+    def _seg_init(self, t) -> dict:
         pb = self.problem
         n, m, p = pb.nvar, pb.nequ, pb.ncon
-        x = x0.to(dtype=self.dtype, device=self.device)
-        lam = lam0.to(dtype=self.dtype, device=self.device)
+        cfg, data = t.cfg, t.data
+        x = t.x0
+        lam = t.lam0
         B = x.shape[0]
 
         Fx, JxT = pb.F_and_Jt(x, data)
@@ -693,7 +834,7 @@ class CaNNOLeSSolver:
         Jxtr = self._rsum(_mv(JxT, r))
         JcT = Jcx.transpose(-2, -1)
         if not self.use_initial_multiplier and p > 0:
-            lam_ls = cgls(JcT, Jxtr)
+            lam_ls = cgls(JcT, Jxtr, check=t._host_reads)
             lam = _sel(norm_2(lam_ls) == 0, torch.ones_like(lam_ls), lam_ls)
 
         dual = Jxtr - (_mv(JcT, lam) if p > 0 else torch.zeros_like(Jxtr))
@@ -734,7 +875,11 @@ class CaNNOLeSSolver:
             small_residual=small_residual,
             data=data,
         )
-        s = self._recheck_where(small_residual & ~first_order, s)
+        return self._finish_init(s, small_residual & ~first_order, cfg)
+
+    def _finish_init(self, s, mask, cfg) -> dict:
+        """Init's status, and the entries for the host check that follows:
+        the lanes to re-check and the lanes left to solve."""
         status = get_status_code(
             optimal=s.first_order,
             small_residual=s.small_residual,
@@ -742,45 +887,102 @@ class CaNNOLeSSolver:
             evals=s.neval_F + s.neval_c,
             max_eval=cfg.max_eval,
         )
-        return s._replace(status=status)
+        fin = s._replace(status=status)
+        nxt = status == Status.UNKNOWN
+        return dict(s_pre=s, s=fin, mask=mask, nxt=nxt, flags=_flags(mask, nxt))
+
+    def _init(self, t):
+        """Init on the bank's x0, lam0, cfg and data: ``t.s`` and ``t.nxt``;
+        returns whether any lane is left to solve."""
+        run_segment(t, "init", self._seg_init)
+        re, nxt = self._check(t.flags)
+        if re:
+            def recheck_init(t):
+                s = self._recheck(t.mask, t.s_pre, t._host_reads)
+                out = self._finish_init(s, t.mask, t.cfg)
+                return dict(s=out["s"], nxt=out["nxt"], flags=_flags(out["nxt"]))
+
+            run_segment(t, "recheck_init", recheck_init)
+            nxt = self._check(t.flags)[0]
+        return nxt
+
+    def _init_state(self, x0, lam0, cfg: RunConfig, data=None) -> SolverState:
+        """Init of a batch as a function: x0 (B, n), lam0 (B, p)."""
+        t = self._bank(x0.shape[0], data)
+        load(t, x0=x0.to(dtype=self.dtype, device=self.device),
+             lam0=lam0.to(dtype=self.dtype, device=self.device), cfg=cfg, data=data)
+        self._init(t)
+        return self._result(t)
 
     # ------------------------------------------------------------------
-    # one outer iteration on the lanes of ``active``
+    # one outer iteration on the lanes of ``t.nxt``
     # ------------------------------------------------------------------
-    def _solve_system(self, s: SolverState, act) -> SolverState:
-        pb, pr = self.problem, self.params
-        n, m, p = pb.nvar, pb.nequ, pb.ncon
+    def _inner_go(self, active, combined, hat, s):
+        """The inner loop's test: the lanes that take another inner
+        iteration, and those of them that solve a system (not right after a
+        failed extrapolation: the inner_iter == 1 quirk of the reference)."""
+        conv = (hat.combined_hat <= 0.99 * combined + s.epsk) | hat.tired
+        go = active & (hat.first | ~conv) & (~s.broken)
+        do_solve = go if self.always_accept_extrapolation else go & (s.inner_iter != 1)
+        return go, do_solve
+
+    def _seg_outer_pre(self, t) -> dict:
+        pr = self.params
+        s, cfg, active = t.s, t.cfg, t.nxt
+        combined = s.normdual + s.normprimal
+        delta0 = torch.clamp(torch.minimum(cfg.delta_dec * s.delta, combined), min=pr.delta_min)
+        s2 = s._replace(
+            delta=delta0, damp=torch.ones_like(s.damp), inner_iter=torch.zeros_like(s.inner_iter)
+        )
+        hat = _Hat(
+            s2.normdual, s2.normprimal, torch.full_like(s2.fx, float("inf")),
+            torch.ones_like(s2.broken), (s2.neval_F + s2.neval_c) > cfg.max_eval,
+        )
+        go, do_solve = self._inner_go(active, combined, hat, s2)
+        return dict(s_in=s, s=s2, active=active, combined=combined, hat=hat, go=go,
+                    do_solve=do_solve, flags=_flags(go, do_solve))
+
+    def _seg_solve0(self, t) -> dict:
+        """The system build (the H block, the KKT or condensed system and its
+        right-hand side) and the ladder's first attempt (rho = 0)."""
+        pb = self.problem
+        m = pb.nequ
+        s = t.s
         H = self._H_block(s.x, s.lam, s.r, s.Fx, s.JxT, s.damp, s.data)
-        bad_direction = None
+        out = {}
         if self.descent_rescue:
-            # the same slope as trial_step's Dϕ; extrapolation iterations
-            # (inner_iter == 0) never require descent
-            JxtFx = self._rsum(_mv(s.JxT, s.Fx))
-            Jcw = _mv(s.Jcx.transpose(-2, -1), s.lam - s.cx / s.delta[:, None]) if p > 0 else None
-
-            def bad_direction(d):
-                Dphi = _vdot(JxtFx, d[:, :n])
-                if Jcw is not None:
-                    Dphi = Dphi - _vdot(d[:, :n], Jcw)
-                return (Dphi >= 0) & (s.inner_iter != 0)
-
+            out["dphi_g"] = self._rsum(_mv(s.JxT, s.Fx))
+            if pb.ncon > 0:
+                out["dphi_c"] = _mv(s.Jcx.transpose(-2, -1), s.lam - s.cx / s.delta[:, None])
         if self.kkt == "condensed":
-            rhs_r = s.primal[:, :m]
-            K0 = self._assemble_condensed(H, s.JxT, s.Jcx, s.delta)
-            b = torch.cat([s.dual + self._rsum(_mv(s.JxT, rhs_r)), s.primal[:, m:]], -1)
-            z, success, rho, rho_old, nfacti = self._newton_system(
-                K0, b, s.rho_old, act, bad_direction
-            )
-            dx = z[:, :n]
-            # recover the eliminated residual step: J dx - dr = -rhs_r
-            dr = rhs_r + (dx.unsqueeze(-2) @ s.JxT).squeeze(-2)
-            d = torch.cat([dx, dr, z[:, n:]], -1)
+            W0 = self._assemble_condensed(H, s.JxT, s.Jcx, s.delta)
+            rhs = torch.cat([s.dual + self._rsum(_mv(s.JxT, s.primal[:, :m])), s.primal[:, m:]], -1)
         else:
             W0 = self._assemble_kkt(H, s.JxT, s.Jcx, s.delta)
             rhs = torch.cat([s.dual, s.primal], -1)
-            d, success, rho, rho_old, nfacti = self._newton_system(
-                W0, rhs, s.rho_old, act, bad_direction
-            )
+        st = self._ladder_start(s.rho_old, rhs, t.do_solve)
+        t0 = SimpleNamespace(**st)
+        c, go = self._ladder_step("main", 0, W0, rhs, t0, t.do_solve)
+        st.update(lad_c=c, lad_go=go)
+        return dict(out, W0=W0, rhs=rhs, **st, flags=_flags(go))
+
+    def _post_solve(self, t) -> SolverState:
+        """The step from the ladders' result, on the lanes of ``do_solve``."""
+        pb, pr = self.problem, self.params
+        n, m = pb.nvar, pb.nequ
+        s, out = t.s, t.lad_c
+        rho_old = torch.where(
+            out.rho == 0, s.rho_old, torch.where(out.rho <= pr.rho_max, out.rho, s.rho_old)
+        )
+        z = _sel(out.success, -out.sol, torch.zeros_like(out.sol))
+        success, rho = out.success, out.rho
+        if self.kkt == "condensed":
+            dx = z[:, :n]
+            # recover the eliminated residual step: J dx - dr = -rhs_r
+            dr = s.primal[:, :m] + (dx.unsqueeze(-2) @ s.JxT).squeeze(-2)
+            d = torch.cat([dx, dr, z[:, n:]], -1)
+        else:
+            d = z
         bad_d = self._rany(check_nan_inf(d))
         blowup = s.fx >= min(F_BLOWUP, float(torch.finfo(self.dtype).max))
         over = rho > pr.rho_max
@@ -788,99 +990,112 @@ class CaNNOLeSSolver:
         msg = torch.zeros_like(s.msg)
         for cond, code in ((blowup, 4), (bad_d, 3), (~success, 2), (over, 1)):
             msg = torch.where(cond, torch.full_like(msg, code), msg)
-        return s._replace(
+        s_new = s._replace(
             d=d,
             dlam=-d[:, n + m:],
             rho=rho,
             rho_old=rho_old,
-            nfact=s.nfact + nfacti,
+            nfact=s.nfact + out.nfact,
             nlinsolve=s.nlinsolve + 1,
             broken=s.broken | broken,
             msg=torch.where(s.msg == 0, msg, s.msg),
         )
+        return _sel_tuple(t.do_solve, s_new, s)
 
-    def _trial_step(self, s: SolverState, act):
-        """Unified extrapolation / Armijo line-search step: one α = 1 trial
-        evaluation, then per-lane α/4 backtracking on the Armijo lanes of
-        ``act`` (extrapolation lanes never backtrack)."""
+    def _trial_seg(self, solved: bool):
+        """The step (after a solve) and the trial point's first evaluation:
+        one α = 1 trial, and the line search's first test on the Armijo
+        lanes (extrapolation lanes never backtrack)."""
+
+        def seg(t):
+            pb, pr = self.problem, self.params
+            n, p = pb.nvar, pb.ncon
+            s = self._post_solve(t) if solved else t.s
+            ok = t.go & (~s.broken)
+            is_extrap = s.inner_iter == 0
+            dx = s.d[:, :n]
+            epsk = torch.where(
+                is_extrap,
+                torch.maximum(torch.minimum(1e3 * s.delta, 0.99 * s.epsk), 0.9 * s.epsk),
+                s.epsk,
+            )
+            eta_ls = 1.0 / s.delta if p > 0 else s.eta
+            JxtFx = self._rsum(_mv(s.JxT, s.Fx))
+            Dphi = _vdot(JxtFx, dx)
+            if p > 0:
+                w = s.lam - s.cx / s.delta[:, None]
+                Dphi = Dphi - _vdot(dx, _mv(s.Jcx.transpose(-2, -1), w))
+            not_descent = (Dphi >= 0) & (~is_extrap)
+            phix = self._merit(s.Fx, s.cx, s.lam, eta_ls)
+
+            xt = s.x + dx
+            Ft = pb.F(xt, s.data)
+            ct = pb.c_shifted(xt, s.data)
+            phit = self._merit(Ft, ct, s.lam, eta_ls)
+            ls = _LS(xt, Ft, ct, phit, torch.ones_like(s.delta), torch.zeros_like(s.nbk),
+                     torch.zeros_like(s.broken))
+            fixed = _LSFixed(epsk, eta_ls, Dphi, not_descent, phix, ok & (~not_descent) & (~is_extrap))
+            go = self._ls_go(ls, fixed)
+            return dict(s=s, ok=ok, ls=ls, lsf=fixed, ls_go=go, flags=_flags(go))
+
+        return seg
+
+    def _ls_go(self, ls, f):
+        """The Armijo lanes that backtrack once more."""
+        return f.ls_lanes & (~ls.fail) & (ls.phit > f.phix + self.params.gamma_A * ls.alpha * f.Dphi)
+
+    def _seg_ls(self, t) -> dict:
+        """One α/4 backtracking trip on the lanes of ``ls_go``."""
+        pb = self.problem
+        s, ls, f, go = t.s, t.ls, t.lsf, t.ls_go
+        eps2 = float(torch.finfo(self.dtype).eps) ** 2
+        alpha_n = ls.alpha / 4
+        xt_n = s.x + alpha_n[:, None] * s.d[:, :pb.nvar]
+        Ft_n = pb.F(xt_n, s.data)
+        ct_n = pb.c_shifted(xt_n, s.data)
+        ls = _LS(
+            _sel(go, xt_n, ls.xt),
+            _sel(go, Ft_n, ls.Ft),
+            _sel(go, ct_n, ls.ct),
+            torch.where(go, self._merit(Ft_n, ct_n, s.lam, f.eta_ls), ls.phit),
+            torch.where(go, alpha_n, ls.alpha),
+            ls.nbk + go.to(torch.int32),
+            torch.where(go, alpha_n < eps2, ls.fail),
+        )
+        go = self._ls_go(ls, f)
+        return dict(ls=ls, ls_go=go, flags=_flags(go))
+
+    def _seg_accept(self, t) -> dict:
+        """The rest of one inner iteration on the lanes of ``ok`` (the
+        extrapolation bookkeeping, the trial linearization, acceptance and
+        the δ heuristic), the carry's update on the lanes of ``go``, and the
+        next iteration's test."""
         pb, pr = self.problem, self.params
         n, m, p = pb.nvar, pb.nequ, pb.ncon
-        dtype = self.dtype
-        data = s.data
+        s, ls, f, cfg, ok, hat = t.s, t.ls, t.lsf, t.cfg, t.ok, t.hat
         is_extrap = s.inner_iter == 0
-        dx = s.d[:, :n]
-        dr = s.d[:, n:n + m]
-
-        epsk = torch.where(
-            is_extrap,
-            torch.maximum(torch.minimum(1e3 * s.delta, 0.99 * s.epsk), 0.9 * s.epsk),
-            s.epsk,
-        )
-        eta_ls = 1.0 / s.delta if p > 0 else s.eta
-        JxtFx = self._rsum(_mv(s.JxT, s.Fx))
-        Dphi = _vdot(JxtFx, dx)
-        if p > 0:
-            w = s.lam - s.cx / s.delta[:, None]
-            Dphi = Dphi - _vdot(dx, _mv(s.Jcx.transpose(-2, -1), w))
-        not_descent = (Dphi >= 0) & (~is_extrap)
-        phix = self._merit(s.Fx, s.cx, s.lam, eta_ls)
-        gammaA = pr.gamma_A
-        eps2 = float(torch.finfo(dtype).eps) ** 2
-
-        xt = s.x + dx
-        Ft = pb.F(xt, data)
-        ct = pb.c_shifted(xt, data)
-        phit = self._merit(Ft, ct, s.lam, eta_ls)
-        alpha = torch.ones_like(s.delta)
-        nbk = torch.zeros_like(s.nbk)
-        fail = torch.zeros_like(s.broken)
-        ls_lanes = act & (~not_descent) & (~is_extrap)
-        while True:
-            go = ls_lanes & (~fail) & (phit > phix + gammaA * alpha * Dphi)
-            if not self._any(go):
-                break
-            alpha_n = alpha / 4
-            xt_n = s.x + alpha_n[:, None] * dx
-            Ft_n = pb.F(xt_n, data)
-            ct_n = pb.c_shifted(xt_n, data)
-            alpha = torch.where(go, alpha_n, alpha)
-            xt = _sel(go, xt_n, xt)
-            Ft = _sel(go, Ft_n, Ft)
-            ct = _sel(go, ct_n, ct)
-            phit = torch.where(go, self._merit(Ft_n, ct_n, s.lam, eta_ls), phit)
-            nbk = nbk + go.to(torch.int32)
-            fail = torch.where(go, alpha_n < eps2, fail)
-
+        nbk = ls.nbk
         # extrapolation lanes: rt = r + dr, λt = λ + clip(dλ)
         ndl = norm_2(s.dlam)
         Mdl = MAX_DLAMBDA
         scale = Mdl / torch.where(ndl > 0, ndl, torch.ones_like(ndl))
         dlam = _sel(is_extrap & (ndl > Mdl), s.dlam * scale[:, None], s.dlam)
-        rt = _sel(is_extrap, s.r + dr, Ft)
+        rt = _sel(is_extrap, s.r + s.d[:, n:n + m], ls.Ft)
         if p > 0:
             lamt = _sel(is_extrap, s.lam + dlam, s.lam - s.cx / s.delta[:, None])
         else:
             lamt = s.lam
-        alpha_out = torch.where(is_extrap, torch.zeros_like(alpha), alpha)
-        eta = torch.where(is_extrap, s.eta, eta_ls)
+        alpha = torch.where(is_extrap, torch.zeros_like(ls.alpha), ls.alpha)
+        eta = torch.where(is_extrap, s.eta, f.eta_ls)
         nF_add = 1 + nbk
         nc_add = (1 + nbk) if p > 0 else torch.zeros_like(nbk)
-        ls_broken = not_descent | fail
+        ls_broken = f.not_descent | ls.fail
         ls_msg = torch.where(
-            not_descent,
+            f.not_descent,
             torch.full_like(s.msg, 5),
-            torch.where(fail, torch.full_like(s.msg, 6), torch.zeros_like(s.msg)),
+            torch.where(ls.fail, torch.full_like(s.msg, 6), torch.zeros_like(s.msg)),
         )
-        return xt, rt, lamt, Ft, ct, alpha_out, eta, epsk, dlam, nbk, nF_add, nc_add, ls_broken, ls_msg
-
-    def _inner_ok(self, c: _InnerCarry, combined, cfg: RunConfig, act) -> _InnerCarry:
-        """The non-broken branch of one inner iteration (trial step, trial
-        linearization, acceptance and the δ heuristic)."""
-        pb, pr = self.problem, self.params
-        n, p = pb.nvar, pb.ncon
-        s = c.s
-        (xt, rt, lamt, Ft, ct, alpha, eta, epsk, dlam,
-         nbk_add, nF_add, nc_add, ls_broken, ls_msg) = self._trial_step(s, act)
+        xt, Ft, ct, epsk = ls.xt, ls.Ft, ls.ct, f.epsk
 
         damp = s.damp
         if self.method == "lm":
@@ -902,8 +1117,11 @@ class CaNNOLeSSolver:
         nph = self._rmax(norm_inf(primal_hat))
         ch = ndh + nph
 
-        good = (ch <= 0.99 * combined + epsk) & (~ls_broken)
-        accept = ((s.inner_iter > 0) | self.always_accept_extrapolation | good) & (~ls_broken)
+        good = (ch <= 0.99 * t.combined + epsk) & (~ls_broken)
+        if self.always_accept_extrapolation:
+            accept = ~ls_broken
+        else:
+            accept = ((s.inner_iter > 0) | good) & (~ls_broken)
 
         x_n = _sel(accept, xt, s.x)
         r_n = _sel(accept, rt, s.r)
@@ -937,61 +1155,34 @@ class CaNNOLeSSolver:
             lam=lam_n, dual=dual_n, primal=primal_hat, dlam=dlam,
             eta=eta, epsk=epsk, alpha=alpha, damp=damp, delta=delta_n,
             inner_iter=inner_n, neval_F=neF, neval_c=nec,
-            nbk=s.nbk + nbk_add,
+            nbk=s.nbk + nbk,
             broken=s.broken | ls_broken,
             msg=torch.where(s.msg == 0, ls_msg, s.msg),
         )
-        return _InnerCarry(s_n, ndh, nph, ch, torch.zeros_like(c.first), tired)
+        # lanes outside ``ok`` keep the solve's state (on the lanes outside
+        # ``go`` that is the carry's, bit for bit, so no select by ``go``);
+        # the carry's norms: the iteration's on ``ok``, kept elsewhere, and
+        # ``first`` cleared on ``go``
+        s = _sel_tuple(ok, s_n, s)
+        kept = _Hat(hat.normdualhat, hat.normprimalhat, hat.combined_hat,
+                    torch.zeros_like(hat.first), hat.tired)
+        new = _Hat(ndh, nph, ch, torch.zeros_like(hat.first), tired)
+        new = _Hat(*[_sel(ok, a, b) for a, b in zip(new, kept)])
+        hat = _Hat(*[_sel(t.go, a, b) for a, b in zip(new, hat)])
+        go, do_solve = self._inner_go(t.active, t.combined, hat, s)
+        return dict(s=s, hat=hat, go=go, do_solve=do_solve, flags=_flags(go, do_solve))
 
-    def _outer_step(self, s: SolverState, cfg: RunConfig, active) -> SolverState:
-        """One outer iteration for the lanes of ``active``; the others keep
-        their state."""
-        pb, pr = self.problem, self.params
-        p = pb.ncon
-        s_in = s
-        combined = s.normdual + s.normprimal
-        delta0 = torch.clamp(torch.minimum(cfg.delta_dec * s.delta, combined), min=pr.delta_min)
-        s = s._replace(
-            delta=delta0, damp=torch.ones_like(s.damp), inner_iter=torch.zeros_like(s.inner_iter)
-        )
-
-        c = _InnerCarry(
-            s, s.normdual, s.normprimal, torch.full_like(s.fx, float("inf")),
-            torch.ones_like(s.broken), (s.neval_F + s.neval_c) > cfg.max_eval,
-        )
-        while True:
-            conv = (c.combined_hat <= 0.99 * combined + c.s.epsk) | c.tired
-            go = active & (c.first | ~conv) & (~c.s.broken)
-            if not self._any(go):
-                break
-            s = c.s
-            # skip the solve right after a failed extrapolation (the
-            # inner_iter == 1 quirk of the reference)
-            do_solve = go & ((s.inner_iter != 1) | self.always_accept_extrapolation)
-            if self._any(do_solve):
-                s = _sel_tuple(do_solve, self._solve_system(s, do_solve), s)
-            ok = go & (~s.broken)
-            c_broken = _InnerCarry(
-                s, c.normdualhat, c.normprimalhat, c.combined_hat,
-                torch.zeros_like(c.first), c.tired,
-            )
-            c_new = self._inner_ok(c._replace(s=s), combined, cfg, ok) if self._any(ok) else c_broken
-            c_new = _InnerCarry(
-                _sel_tuple(ok, c_new.s, s),
-                *[_sel(ok, a, b) for a, b in zip(c_new[1:], c_broken[1:])],
-            )
-            c = _InnerCarry(
-                _sel_tuple(go, c_new.s, c.s),
-                *[_sel(go, a, b) for a, b in zip(c_new[1:], c[1:])],
-            )
-        s = c.s._replace(normdual=c.normdualhat, normprimal=c.normprimalhat)
-
+    def _seg_outer_post(self, t) -> dict:
+        """The outer bookkeeping: the multiplier refit, the first-order and
+        small-residual tests, and (unless a re-check follows) the status."""
+        p = self.problem.ncon
+        s = t.s._replace(normdual=t.hat.normdualhat, normprimal=t.hat.normprimalhat)
         if self.multiplier_refit and p > 0:
             # per-outer CGLS multiplier refit, kept only where it strictly
             # lowers the dual norm
             JcT = s.Jcx.transpose(-2, -1)
             Jxtr_f = self._rsum(_mv(s.JxT, s.r))
-            lam_fit = cgls(JcT, Jxtr_f)
+            lam_fit = cgls(JcT, Jxtr_f, check=t._host_reads)
             dual_fit = Jxtr_f - _mv(JcT, lam_fit)
             nd_fit = norm_inf(dual_fit)
             take = (nd_fit < s.normdual) & (~s.broken)
@@ -1000,14 +1191,17 @@ class CaNNOLeSSolver:
                 dual=_sel(take, dual_fit, s.dual),
                 normdual=torch.where(take, nd_fit, s.normdual),
             )
-
-        # outer bookkeeping
         sd = self._dual_scaling(s.lam)
         first_order = torch.maximum(s.normdual / sd, s.normprimal) <= s.epstol
         small_residual = (2 * torch.sqrt(s.fx) <= s.epsF) & (norm_2(s.cx) <= s.epsc)
         s = s._replace(first_order=first_order, small_residual=small_residual)
-        s = self._recheck_where(active & small_residual & ~first_order, s)
+        mask = t.active & small_residual & ~first_order
+        fin = self._finish_outer(s, t)
+        nxt = fin.status == Status.UNKNOWN
+        return dict(s_pre=s, s=fin, mask=mask, nxt=nxt, flags=_flags(mask, nxt))
 
+    def _finish_outer(self, s, t) -> SolverState:
+        cfg = t.cfg
         iter_n = s.iter + 1
         status = get_status_code(
             optimal=s.first_order,
@@ -1019,8 +1213,87 @@ class CaNNOLeSSolver:
             max_iter=cfg.max_iter,
             stalled=(s.inner_iter > cfg.max_inner) & (cfg.max_inner >= 0),
         )
-        s = s._replace(iter=iter_n, status=status)
-        return _sel_tuple(active, s, s_in)
+        return _sel_tuple(t.active, s._replace(iter=iter_n, status=status), t.s_in)
+
+    def _seg_recheck_outer(self, t) -> dict:
+        s = self._finish_outer(self._recheck(t.mask, t.s_pre, t._host_reads), t)
+        nxt = s.status == Status.UNKNOWN
+        return dict(s=s, nxt=nxt, flags=_flags(nxt))
+
+    def _outer(self, t) -> bool:
+        """One outer iteration for the lanes of ``t.nxt`` (the others keep
+        their state); returns whether any lane is left to solve."""
+        run_segment(t, "outer_pre", self._seg_outer_pre)
+        go, do_solve = self._check(t.flags)
+        while go:
+            if do_solve:
+                run_segment(t, "solve0", self._seg_solve0, eager=self.linsolve == "eigh")
+                self._newton_system_segments(t)
+            run_segment(t, "trial:solved" if do_solve else "trial", self._trial_seg(do_solve))
+            while self._check(t.flags)[0]:
+                run_segment(t, "ls", self._seg_ls)
+            run_segment(t, "accept", self._seg_accept)
+            go, do_solve = self._check(t.flags)
+        run_segment(t, "outer_post", self._seg_outer_post)
+        re, nxt = self._check(t.flags)
+        if re:
+            run_segment(t, "recheck_outer", self._seg_recheck_outer)
+            nxt = self._check(t.flags)[0]
+        return nxt
+
+    def _outer_step(self, s: SolverState, cfg: RunConfig, active) -> SolverState:
+        """One outer iteration for the lanes of ``active`` as a function; the
+        other lanes keep their state."""
+        t = self._bank(s.x.shape[0], s.data)
+        load(t, s=s, cfg=cfg, nxt=active)
+        self._outer(t)
+        return self._result(t)
+
+    # ------------------------------------------------------------------
+    # routes, banks and host checks
+    # ------------------------------------------------------------------
+    def _bank(self, B: int, data) -> Bank:
+        """The bank of a batch of B lanes with this data layout: on the
+        graph route one per (B, data shapes), kept with its graphs (the
+        ``MAX_BANKS`` most recently used: a rescue's B changes from call to
+        call); a fresh one per call on the eager route."""
+        if self.route == "eager":
+            return Bank("eager", self.problem.name)
+        key = (B, _layout(data))
+        bank = self._banks.get(key)
+        if bank is None:
+            bank = self._banks[key] = Bank(self.route, f"problem {self.problem.name!r} (B={B}, {self.dtype})",
+                                           pool=self._pool)
+            while len(self._banks) > MAX_BANKS:
+                self._banks.popitem(last=False)
+        self._banks.move_to_end(key)
+        return bank
+
+    def _result(self, t) -> SolverState:
+        """The bank's state, copied on the graph route (its buffers are
+        rewritten by the next run)."""
+        return clone_tree(t.s) if t._graphed else t.s
+
+    def _check(self, flags) -> list:
+        """A host check: read a segment's flags (one sync, counted in
+        ``host_syncs``) and, inside ``solve()``, the wall-clock budget."""
+        self.host_syncs += 1
+        vals = flags.tolist()
+        if self._deadline is not None:
+            # on a row mesh every rank leaves the step at the same check
+            *vals, spent = self._agree(*vals, time.time() > self._deadline)
+            if spent:
+                raise _BudgetSpent
+        return vals
+
+    def graph_replays(self) -> dict:
+        """Replays per captured segment over this solver's banks (the graph
+        route), summed over batch sizes."""
+        out: dict = {}
+        for bank in self._banks.values():
+            for k, v in bank.replays().items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     # ------------------------------------------------------------------
     # batched run: init, then outer steps until no lane is UNKNOWN
@@ -1030,12 +1303,13 @@ class CaNNOLeSSolver:
         """Solve a batch to the end: x0 (B, n), lam0 (B, p), data leaves
         with a leading B axis (or None).  Counterpart of the JAX
         ``_run_compiled`` under vmap."""
-        s = self._init_state(x0, lam0, cfg, data)
-        while True:
-            active = s.status == Status.UNKNOWN
-            if not self._any(active):
-                return s
-            s = self._outer_step(s, cfg, active)
+        t = self._bank(x0.shape[0], data)
+        load(t, x0=x0.to(dtype=self.dtype, device=self.device),
+             lam0=lam0.to(dtype=self.dtype, device=self.device), cfg=cfg, data=data)
+        more = self._init(t)
+        while more:
+            more = self._outer(t)
+        return self._result(t)
 
     # ------------------------------------------------------------------
     # host-driven solve (callbacks, wall-clock limit, logging)
@@ -1104,10 +1378,20 @@ class CaNNOLeSSolver:
         rtol·‖∇L‖ now)."""
         pb = self.problem
         pb.validate_for_solve()
-        t0 = time.time()
         cfg = self.make_config(**numeric)
         stats = stats or ExecutionStats()
         stats.status = "unknown"
+        data = _add_batch_axis(pb.data, self.device)
+        if resume_from is None:
+            x0 = pb.x0 if x0 is None else x0
+            lam0 = pb.y0 if lam0 is None else lam0
+            x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device).reshape(1, -1)
+            lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
+        if not self._warm:
+            start = resume_from if resume_from is not None else (x0, lam0, data)
+            self._warm_up(start, numeric)
+        t0 = time.time()
+        t = self._bank(1, data if resume_from is None else resume_from.data)
 
         if resume_from is not None:
             state = resume_from._replace(status=torch.zeros_like(resume_from.status))
@@ -1115,40 +1399,72 @@ class CaNNOLeSSolver:
                 epstol = cfg.atol + cfg.rtol * state.normdual
                 epsF = cfg.Fatol + cfg.Frtol * 2 * torch.sqrt(state.fx)
                 state = state._replace(epstol=epstol, epsF=epsF, epsc=torch.sqrt(epstol))
+            load(t, s=state, cfg=cfg, nxt=state.status == Status.UNKNOWN)
         else:
-            x0 = pb.x0 if x0 is None else x0
-            lam0 = pb.y0 if lam0 is None else lam0
-            x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device).reshape(1, -1)
-            lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
-            state = self._init_state(x0, lam0, cfg, _add_batch_axis(pb.data, self.device))
+            load(t, x0=x0, lam0=lam0, cfg=cfg, data=data)
+            self._init(t)
+        state = t.s
         self._sync_stats(state, stats, time.time() - t0)
         if verbose > 0:
             self._log_header()
-        self._between_steps(state, stats, callback, verbose > 0, False)
+        seen = clone_tree(state) if t._graphed and callback is not None else state
+        self._between_steps(seen, stats, callback, verbose > 0, False)
         done = stats.status != "unknown"
 
         try:
             while not done:
                 try:
-                    state = self._outer_step(state, cfg, state.status == Status.UNKNOWN)
+                    self._outer(t)
                 except _BudgetSpent:
+                    # the interrupted step is dropped: its start is s_in
+                    state = t.s_in
                     stats.status = status_name(Status.MAX_TIME)
                     stats.elapsed_time = time.time() - t0
                     break
+                state = t.s
                 elapsed = time.time() - t0
                 self._sync_stats(state, stats, elapsed)
                 log = verbose > 0 and stats.iter % verbose == 0
-                self._between_steps(state, stats, callback, log, elapsed > max_time)
+                # a callback may keep the state: on the graph route it gets a copy
+                seen = clone_tree(state) if t._graphed and callback is not None else state
+                self._between_steps(seen, stats, callback, log, elapsed > max_time)
                 done = stats.status != "unknown"
                 self._deadline = t0 + max_time
         finally:
             self._deadline = None
 
+        state = clone_tree(state) if t._graphed else state
         self._finalize_stats(state, stats)
         self.last_state = state
         pb.counters.neval_residual += int(state.neval_F[0])
         pb.counters.neval_cons += int(state.neval_c[0])
         return stats
+
+    def _warm_up(self, start, numeric):
+        """The one-time costs of a solver, paid before ``solve()`` starts its
+        clock (the counterpart of the JAX package's ``_outer_warm``): init
+        and one outer step of at most two inner iterations from ``start``
+        ((x0, lam0, data) or a state to resume), on a bank whose results are
+        dropped.  It imports what the evaluators import lazily, builds the
+        kernels and, on the graph route, captures the segments it runs.  The
+        host checks and kernel launches it makes are not counted."""
+        syncs, launches = self.host_syncs, counters()
+        try:
+            cfg = self.make_config(**{**numeric, "max_inner": 1})
+            if isinstance(start, SolverState):
+                t = self._bank(1, start.data)
+                load(t, s=start, cfg=cfg)
+            else:
+                x0, lam0, data = start
+                t = self._bank(1, data)
+                load(t, x0=x0, lam0=lam0, cfg=cfg, data=data)
+                self._init(t)
+            load(t, nxt=torch.ones_like(t.s.broken))
+            self._outer(t)
+        finally:
+            self.host_syncs = syncs
+            restore_counters(launches)
+        self._warm = True
 
     def _between_steps(self, s: SolverState, stats: ExecutionStats, callback, log: bool, over: bool):
         """The host's turn after an outer step: the wall-clock budget

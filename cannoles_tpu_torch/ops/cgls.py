@@ -5,7 +5,7 @@ least-squares multiplier estimate λ = argmin ‖Jcᵀ λ − Jᵀ F‖ (Armand 
 Each lane stops on its own (Krylov.jl's rule ‖Bᵀr‖ ≤ atol + rtol·‖Bᵀr₀‖, or
 ``itmax = n + p`` iterations); a stopped lane keeps its iterate unchanged,
 as a lane of JAX's batched ``while_loop`` does.  The loop ends when no lane
-is active.
+is active, or (``check=False``) after ``itmax`` iterations.
 """
 
 from __future__ import annotations
@@ -27,8 +27,12 @@ def cgls(
     itmax: Optional[int] = None,
     atol: Optional[float] = None,
     rtol: Optional[float] = None,
+    check: bool = True,
 ) -> torch.Tensor:
-    """min_y ‖B y − b‖₂ per lane for B (Bt, n, p), b (Bt, n); returns (Bt, p)."""
+    """min_y ‖B y − b‖₂ per lane for B (Bt, n, p), b (Bt, n); returns (Bt, p).
+    ``check=False`` runs all ``itmax`` iterations without reading the mask
+    on the host (a trip with no active lane changes nothing), so that the
+    loop can be captured in a CUDA graph; the result is the same."""
     Bt, n, p = B.shape
     if p == 0:
         return B.new_zeros((Bt, 0))
@@ -50,7 +54,7 @@ def cgls(
     one = torch.ones_like(gamma)
     for _ in range(itmax):
         act = gamma > tol2
-        if not bool(act.any()):
+        if check and not bool(act.any()):
             break
         q = _mv(B, pdir)
         delta = (q * q).sum(-1)

@@ -8,7 +8,8 @@ hash of the source, the flags and the host's CPU (model name and flags from
 ``/proc/cpuinfo``): the build directory may travel with a checkout to
 another machine, where a ``-march=native`` library built for this one could
 die on an illegal instruction.  A missing ``g++`` or a failed build raises
-with the compiler's output.
+with the compiler's output.  ``ops/ldlt.py`` builds ``csrc/ldlt_exact.cpp``
+(its exact host LDLᵀ) with the same helpers and its own flags.
 
 This backend runs on the host CPU by design, as the JAX package's
 ``pure_callback`` does: W and rhs are copied to host memory as float64,
@@ -56,21 +57,21 @@ def _cpu_id() -> str:
     return repr(sorted(keep.items()))
 
 
-def lib_path() -> pathlib.Path:
+def lib_path(src: pathlib.Path = _SRC, flags=_FLAGS) -> pathlib.Path:
     """Where the library for this source, these flags and this CPU lives."""
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(flags).encode())
     h.update(_cpu_id().encode())
-    return _BUILD_DIR / f"libldlt_host_{h.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build(lib: pathlib.Path) -> None:
+def _build(lib: pathlib.Path, src: pathlib.Path = _SRC, flags=_FLAGS) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found on PATH: cannot build the host LDLT library (linsolve='cpp')")
+        raise RuntimeError(f"g++ not found on PATH: cannot build {src.name}")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [gxx, *_FLAGS, str(_SRC), "-o", str(tmp)]
+    cmd = [gxx, *flags, str(src), "-o", str(tmp)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"g++ failed ({r.returncode}): {' '.join(cmd)}\n{r.stdout}\n{r.stderr}")

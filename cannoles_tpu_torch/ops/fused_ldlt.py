@@ -38,10 +38,13 @@ __all__ = [
     "max_n",
     "thread_max_n",
     "LAUNCHES",
+    "BY_SHAPE",
 ]
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), and the
+# same by (N, B)
 LAUNCHES = 0
+BY_SHAPE: dict = {}
 _FNS = None  # the bound C functions, see _functions()
 
 _SMEM_BYTES = 232_448  # shared memory a block may use on sm_90 (227 KB)
@@ -141,4 +144,5 @@ def _launch(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float, route: int):
     if err != 0:
         raise RuntimeError(f"fused_ldlt_solve: kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    BY_SHAPE[(N, B)] = BY_SHAPE.get((N, B), 0) + 1
     return x, d

@@ -3,7 +3,11 @@
 PyTorch counterpart of ``cannoles_tpu/ops/ldlt.py``.  Every function takes a
 leading batch axis: matrices are (B, N, N), vectors (B, N).
 
-* ``ldlt_factor`` eliminates in the fixed order k = 0..N-1.  A pivot with
+* ``ldlt_factor`` eliminates in the fixed order k = 0..N-1.  On the CPU it
+  runs the same operations in host C++ (``csrc/ldlt_exact.cpp``, built by
+  ``g++`` at first use and called as the op ``cannoles::ldlt_factor_host``,
+  so that a traced segment records one node): bit for bit the PyTorch loop
+  below, which runs on a card and wherever ``g++`` cannot build it.  A pivot with
   |d_k| ≤ eig_tol is skipped: its inverse is 0, its L column is zeroed and it
   makes no trailing update, but the raw pivot is recorded so the inertia test
   fails and the caller's ρ ladder retries.  The JAX package blocks the
@@ -17,6 +21,7 @@ leading batch axis: matrices are (B, N, N), vectors (B, N).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -24,6 +29,7 @@ import torch
 __all__ = [
     "Factorization",
     "ldlt_factor",
+    "ldlt_factor_torch",
     "ldlt_solve",
     "eigh_factor",
     "eigh_solve",
@@ -42,24 +48,70 @@ class Factorization(NamedTuple):
 def safe_inverse(d, eig_tol: float):
     """1/d where |d| > eig_tol, else 0 (the skipped-pivot rule)."""
     ok = d.abs() > eig_tol
-    return torch.where(ok, 1.0 / torch.where(ok, d, torch.ones_like(d)), torch.zeros_like(d))
+    return torch.where(ok, 1.0 / torch.where(ok, d, 1.0), 0.0)
+
+
+# the host library's functions by dtype, or False where it cannot be built
+_HOST = None
+
+
+def _host_functions():
+    global _HOST
+    if _HOST is None:
+        from . import cpp_ldlt
+
+        src = cpp_ldlt._PKG / "csrc" / "ldlt_exact.cpp"
+        flags = ["-O2", "-shared", "-fPIC", "-ffp-contract=off", "-fno-fast-math"]
+        try:
+            lib = cpp_ldlt.lib_path(src, flags)
+            if not lib.exists():
+                cpp_ldlt._build(lib, src, flags)
+            cdll = ctypes.CDLL(str(lib))
+        except (RuntimeError, OSError):
+            _HOST = False
+            return _HOST
+        P, Lg, I, D = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_double
+        fns = {torch.float64: cdll.cannoles_ldlt_exact_f64, torch.float32: cdll.cannoles_ldlt_exact_f32}
+        for fn in fns.values():
+            fn.restype = None
+            fn.argtypes = [P, P, P, Lg, I, D]
+        _HOST = fns
+    return _HOST
+
+
+@torch.library.custom_op("cannoles::ldlt_factor_host", mutates_args=())
+def _ldlt_factor_host(A: torch.Tensor, eig_tol: float) -> tuple[torch.Tensor, torch.Tensor]:
+    A = A.contiguous()
+    L = torch.empty_like(A)
+    d = A.new_empty(A.shape[:-1])
+    if A.numel():
+        _host_functions()[A.dtype](A.data_ptr(), L.data_ptr(), d.data_ptr(), A.shape[0], A.shape[-1],
+                                   float(eig_tol))
+    return L, d
 
 
 def ldlt_factor(A: torch.Tensor, eig_tol: float) -> Factorization:
     """Unpivoted LDLᵀ of a batch of symmetric (N, N) matrices: unit-lower L
-    and the raw pivots d."""
+    and the raw pivots d.  Column k updates only the trailing block
+    W[k+1:, k+1:], the only entries that later columns read, so that a
+    pivot d_k is the diagonal entry that no later column touches."""
+    if A.device.type == "cpu" and A.dtype in (torch.float32, torch.float64) and _host_functions():
+        return Factorization(*torch.ops.cannoles.ldlt_factor_host(A, float(eig_tol)))
+    return ldlt_factor_torch(A, eig_tol)
+
+
+def ldlt_factor_torch(A: torch.Tensor, eig_tol: float) -> Factorization:
+    """``ldlt_factor`` in PyTorch operations (the card's, and the host
+    library's reference)."""
     Bt, N, _ = A.shape
     W = A.clone()
-    L = torch.zeros_like(A)
-    d = A.new_zeros((Bt, N))
-    rows = torch.arange(N, device=A.device)
-    for k in range(N):
+    L = torch.eye(N, dtype=A.dtype, device=A.device).expand(Bt, N, N).clone()
+    for k in range(N - 1):
         dk = W[:, k, k]
-        col = torch.where(rows > k, W[:, :, k] * safe_inverse(dk, eig_tol)[:, None], 0.0)
-        L[:, :, k] = col + (rows == k).to(A.dtype)
-        d[:, k] = dk
-        W = W - dk[:, None, None] * col[:, :, None] * col[:, None, :]
-    return Factorization(L, d)
+        col = W[:, k + 1:, k] * safe_inverse(dk, eig_tol)[:, None]
+        L[:, k + 1:, k] = col + 0.0  # as the unit diagonal is added to the column: -0.0 → +0.0
+        W[:, k + 1:, k + 1:] -= (dk[:, None] * col)[:, :, None] * col[:, None, :]
+    return Factorization(L, torch.diagonal(W, dim1=-2, dim2=-1).clone())
 
 
 def ldlt_solve(fac: Factorization, rhs: torch.Tensor, eig_tol: float) -> torch.Tensor:

@@ -353,6 +353,8 @@ def _rescue_unsolved(
                 )
             else:
                 sib = CaNNOLeSSolver(solver.problem, linsolve="eigh", **common)
+            if solver.route == "eager":  # a solver put on the eager route keeps its siblings there
+                sib.route, sib.route_reason = solver.route, solver.route_reason
             cache[kind] = sib
         return sib
 

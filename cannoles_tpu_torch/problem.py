@@ -8,25 +8,41 @@ functions on ONE instance,
 written with torch ops, and every evaluator below works on a batch: ``x`` is
 (B, nvar) and ``data`` is ``None`` or a pytree (tensor, dict, tuple) whose
 leaves carry the same leading B axis.  Values are batched with
-``torch.func.vmap`` over ``(x, data)``; derivatives come from
-``torch.func.jacfwd`` and ``torch.func.hessian``.  The matrix-free
-products (``jprod_res``, ``jtprod_res``, ``jprod_cons``, ``jtprod_cons``,
-``hprod_res``, ``hprod_cons``, ``hprod_lag``) are one ``torch.func.jvp``,
-``vjp`` or forward-over-reverse pass each, batched the same way; they never
-form a Jacobian.  The shard_map basis of the JAX package has no counterpart.
+``torch.func.vmap`` over ``(x, data)``, and at B = 1 the function is called
+on the one instance; derivatives come from ``torch.func.jacfwd`` and, for the
+weighted Hessians Σᵢ wᵢ∇²Fᵢ, ``torch.func.hessian``.  Each evaluator builds
+its callable once per problem.  On the CPU a B = 1 derivative is traced at
+its ``TRACE_CALLS``-th call with one input layout (``_Trace``).  The matrix-free products (``jprod_res``, ``jtprod_res``,
+``jprod_cons``, ``jtprod_cons``, ``hprod_res``, ``hprod_cons``,
+``hprod_lag``) are one ``torch.func.jvp``, ``vjp`` or forward-over-reverse
+pass each, batched the same way; they never form a Jacobian.  The shard_map
+basis of the JAX package has no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import warnings
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, jvp, vjp, vmap
 
-__all__ = ["NLSProblem", "nls_problem", "default_device", "Counters"]
+__all__ = ["NLSProblem", "nls_problem", "default_device", "Counters", "TRACE_CALLS"]
+
+# the call of a B = 1 derivative evaluator on the CPU (a ``torch.func``
+# transform of the residual or the constraints), with one input layout, at
+# which it is traced (``_Trace``): recording one costs as much as a median of
+# 56 of its eager calls over the battery's problems (``host_timings --what
+# trace``), so a solve that calls it more often pays at most about twice the
+# least it could, and a short one never records.  Values (``F``, ``c``) and
+# the user's own derivatives are not traced: a trace of plain operations
+# gains nothing
+TRACE_CALLS = 56
+# the evaluators built from transforms (``_apply``'s keys)
+_TRACED = frozenset({"Jfwd", "FJfwd", "Jcfwd", "Hres_ad", "Hcon_ad"})
 
 
 class Counters:
@@ -93,6 +109,11 @@ class NLSProblem:
     jac_cons: Optional[Callable] = None
     hess_cons_weighted: Optional[Callable] = None  # (x, y, data) -> (n, n)
     counters: Counters = dataclasses.field(default_factory=Counters, compare=False)
+    # the evaluators' torch.func callables, built on first use (``_fn``)
+    _fns: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
+    # the CPU's B = 1 callables by (evaluator, input layout): calls so far,
+    # then their ``_Trace``, or why the trace failed (``untraced``)
+    _traces: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     # ---- validation ----
     def validate_for_solve(self):
@@ -114,22 +135,70 @@ class NLSProblem:
         return bool(torch.any(self.lcon != self.ucon))
 
     # ---- batched evaluators: x (B, n), data leaves (B, ...) or None ----
+    # Each builds its torch.func callable once per problem (``_fn``).  At
+    # B = 1 it calls the unbatched function on lane 0 and adds the axis
+    # back: the same arithmetic without vmap's cost per call.
+    def _fn(self, key, build):
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._fns[key] = build()
+        return fn
+
+    def _apply(self, key, build, x, *args, data=None):
+        """``build()`` is a function of one instance, ``f(x, *args, data)``;
+        this maps it over the leading axis of ``x``, ``args`` and ``data``."""
+        one = self._fn(key, build)
+        if x.shape[0] == 1:
+            args0 = (x[0], *[a[0] for a in args], _lane0(data))
+            out = self._call_one(key, one, args0) if key in _TRACED else one(*args0)
+            return tuple(o.unsqueeze(0) for o in out) if isinstance(out, tuple) else out.unsqueeze(0)
+        mapped = self._fn((key, data is None), lambda: vmap(one, in_dims=(0,) * (1 + len(args)) + (_dd(data),)))
+        return mapped(x, *args, data)
+
+    def _call_one(self, key, one, args):
+        """``one(*args)`` on one instance (a derivative); on the CPU through
+        its trace from its ``TRACE_CALLS``-th call with this input layout."""
+        leaves = _tensors(args, [])
+        if leaves[0].device.type != "cpu" or any(
+            torch._C._functorch.is_functorch_wrapped_tensor(t) or (t.requires_grad and torch.is_grad_enabled())
+            for t in leaves
+        ):
+            return one(*args)
+        tkey = (key, _layout(args))
+        ent = self._traces.get(tkey, 0)
+        if isinstance(ent, int):
+            if ent + 1 < TRACE_CALLS:
+                self._traces[tkey] = ent + 1
+                return one(*args)
+            try:
+                ent = _Trace(one, args)
+            except Exception as e:  # noqa: BLE001 - the callable stays eager, recorded
+                ent = f"{type(e).__name__}: {e}"
+            self._traces[tkey] = ent
+        return one(*args) if isinstance(ent, str) else ent(leaves)
+
+    @property
+    def untraced(self) -> dict:
+        """The B = 1 callables whose trace failed on the CPU, by (evaluator,
+        input layout), with the error: they run eagerly."""
+        return {k: v for k, v in self._traces.items() if isinstance(v, str)}
+
     def F(self, x, data=None):
-        return vmap(self.residual, in_dims=(0, _dd(data)))(x, data)
+        return self._apply("F", lambda: self.residual, x, data=data)
 
     def c_shifted(self, x, data=None):
         """cons(x) - lcon, (B, ncon)."""
         if self.ncon == 0:
             return x.new_zeros((x.shape[0], 0))
-        c = vmap(self.cons, in_dims=(0, _dd(data)))(x, data)
+        c = self._apply("c", lambda: self.cons, x, data=data)
         return c - self.lcon.to(dtype=x.dtype, device=x.device)
 
     def Jt(self, x, data=None):
         """Jᵀ in its (B, nvar, nequ) layout, the one the solver state carries."""
         if self.jac_residual is not None:
-            J = vmap(self.jac_residual, in_dims=(0, _dd(data)))(x, data)
+            J = self._apply("J", lambda: self.jac_residual, x, data=data)
         else:
-            J = _as_dtype(vmap(jacfwd(self.residual), in_dims=(0, _dd(data)))(x, data), x)
+            J = _as_dtype(self._apply("Jfwd", lambda: jacfwd(self.residual), x, data=data), x)
         return J.transpose(-2, -1)
 
     def F_and_Jt(self, x, data=None):
@@ -138,11 +207,14 @@ class NLSProblem:
         if self.jac_residual is not None:
             return self.F(x, data), self.Jt(x, data)
 
-        def fa(z, d):
-            y = self.residual(z, d)
-            return y, y
+        def build():
+            def fa(z, d):
+                y = self.residual(z, d)
+                return y, y
 
-        J, Fx = vmap(jacfwd(fa, has_aux=True), in_dims=(0, _dd(data)))(x, data)
+            return jacfwd(fa, has_aux=True)
+
+        J, Fx = self._apply("FJfwd", build, x, data=data)
         return Fx, _as_dtype(J, x).transpose(-2, -1)
 
     def Jc(self, x, data=None):
@@ -150,8 +222,8 @@ class NLSProblem:
         if self.ncon == 0:
             return x.new_zeros((x.shape[0], 0, self.nvar))
         if self.jac_cons is not None:
-            return vmap(self.jac_cons, in_dims=(0, _dd(data)))(x, data)
-        return _as_dtype(vmap(jacfwd(self.cons), in_dims=(0, _dd(data)))(x, data), x)
+            return self._apply("Jc", lambda: self.jac_cons, x, data=data)
+        return _as_dtype(self._apply("Jcfwd", lambda: jacfwd(self.cons), x, data=data), x)
 
     def hess_res(self, x, r, data=None):
         """Σᵢ rᵢ ∇²Fᵢ(x), (B, n, n)."""
@@ -161,38 +233,38 @@ class NLSProblem:
                 "use method='gauss_newton' (reference :Newton_noFHess)"
             )
         if self.hess_residual_weighted is not None:
-            fn = self.hess_residual_weighted
-        else:
-            fn = hessian(lambda z, w, d: (self.residual(z, d) * w).sum())
-        return vmap(fn, in_dims=(0, 0, _dd(data)))(x, r, data)
+            return self._apply("Hres", lambda: self.hess_residual_weighted, x, r, data=data)
+        return self._apply("Hres_ad", lambda: _weighted_hessian(self.residual), x, r, data=data)
 
     def hess_cons(self, x, y, data=None):
         """Σᵢ yᵢ ∇²cᵢ(x), (B, n, n) (NLPModels hess with obj_weight = 0)."""
         if self.ncon == 0:
             return x.new_zeros((x.shape[0], self.nvar, self.nvar))
         if self.hess_cons_weighted is not None:
-            fn = self.hess_cons_weighted
-        else:
-            fn = hessian(lambda z, w, d: (self.cons(z, d) * w).sum())
-        return vmap(fn, in_dims=(0, 0, _dd(data)))(x, y, data)
+            return self._apply("Hcon", lambda: self.hess_cons_weighted, x, y, data=data)
+        return self._apply("Hcon_ad", lambda: _weighted_hessian(self.cons), x, y, data=data)
 
     # ---- matrix-free products (NLPModels jprod/jtprod/hprod parity) ----
-    # x (B, nvar); v, w, r, y carry the same batch axis; no Jacobian is formed
+    # x (B, nvar); v, w, r, y carry the same batch axis; no Jacobian is
+    # formed.  Each vmapped callable is built once per problem.
+    def _mapped(self, key, one, nargs, data):
+        return self._fn(("mf", key, data is None), lambda: vmap(one(), in_dims=(0,) * nargs + (_dd(data),)))
+
     def jprod_res(self, x, v, data=None):
         """J(x) v, (B, nequ): one forward-mode pass (jprod_residual!)."""
 
-        def one(z, u, d):
-            return jvp(lambda zz: self.residual(zz, d), (z,), (u,))[1]
+        def one():
+            return lambda z, u, d: jvp(lambda zz: self.residual(zz, d), (z,), (u,))[1]
 
-        return vmap(one, in_dims=(0, 0, _dd(data)))(x, v, data)
+        return self._mapped("jprod_res", one, 2, data)(x, v, data)
 
     def jtprod_res(self, x, w, data=None):
         """J(x)ᵀ w, (B, nvar): one reverse-mode pass (jtprod_residual!)."""
 
-        def one(z, ww, d):
-            return vjp(lambda zz: self.residual(zz, d), z)[1](ww)[0]
+        def one():
+            return lambda z, ww, d: vjp(lambda zz: self.residual(zz, d), z)[1](ww)[0]
 
-        return vmap(one, in_dims=(0, 0, _dd(data)))(x, w, data)
+        return self._mapped("jtprod_res", one, 2, data)(x, w, data)
 
     def res_pullback(self, x, data=None):
         """w ↦ J(x)ᵀ w for repeated use at one x: one forward pass with its
@@ -206,20 +278,20 @@ class NLSProblem:
         if self.ncon == 0:
             return x.new_zeros((x.shape[0], 0))
 
-        def one(z, u, d):
-            return jvp(lambda zz: self.cons(zz, d), (z,), (u,))[1]
+        def one():
+            return lambda z, u, d: jvp(lambda zz: self.cons(zz, d), (z,), (u,))[1]
 
-        return vmap(one, in_dims=(0, 0, _dd(data)))(x, v, data)
+        return self._mapped("jprod_cons", one, 2, data)(x, v, data)
 
     def jtprod_cons(self, x, w, data=None):
         """Jc(x)ᵀ w, (B, nvar) (jtprod!)."""
         if self.ncon == 0:
             return torch.zeros_like(x)
 
-        def one(z, ww, d):
-            return vjp(lambda zz: self.cons(zz, d), z)[1](ww)[0]
+        def one():
+            return lambda z, ww, d: vjp(lambda zz: self.cons(zz, d), z)[1](ww)[0]
 
-        return vmap(one, in_dims=(0, 0, _dd(data)))(x, w, data)
+        return self._mapped("jtprod_cons", one, 2, data)(x, w, data)
 
     def hprod_res(self, x, r, v, data=None):
         """(Σᵢ rᵢ ∇²Fᵢ(x)) v, (B, nvar), forward over reverse (hprod_residual!)."""
@@ -229,39 +301,142 @@ class NLSProblem:
                 "use method='gauss_newton' (reference :Newton_noFHess)"
             )
 
-        def one(z, w, u, d):
-            g = grad(lambda zz: (self.residual(zz, d) * w).sum())
-            return jvp(g, (z,), (u,))[1]
+        def one():
+            def h(z, w, u, d):
+                g = grad(lambda zz: (self.residual(zz, d) * w).sum())
+                return jvp(g, (z,), (u,))[1]
 
-        return vmap(one, in_dims=(0, 0, 0, _dd(data)))(x, r, v, data)
+            return h
+
+        return self._mapped("hprod_res", one, 3, data)(x, r, v, data)
 
     def hprod_cons(self, x, y, v, data=None):
         """(Σᵢ yᵢ ∇²cᵢ(x)) v, (B, nvar): hprod! with obj_weight = 0."""
         if self.ncon == 0:
             return torch.zeros_like(x)
 
-        def one(z, w, u, d):
-            g = grad(lambda zz: (self.cons(zz, d) * w).sum())
-            return jvp(g, (z,), (u,))[1]
+        def one():
+            def h(z, w, u, d):
+                g = grad(lambda zz: (self.cons(zz, d) * w).sum())
+                return jvp(g, (z,), (u,))[1]
 
-        return vmap(one, in_dims=(0, 0, 0, _dd(data)))(x, y, v, data)
+            return h
+
+        return self._mapped("hprod_cons", one, 3, data)(x, y, v, data)
 
     def hprod_lag(self, x, y, v, *, obj_weight=1.0, data=None):
         """∇²ₓₓ(σ·½‖F‖² + yᵀc) v, (B, nvar): the NLPModels hprod! contract,
         the Gauss–Newton term JᵀJv plus the residual and constraint
         curvature."""
 
-        def lag(z, w, d):
-            F = self.residual(z, d)
-            val = obj_weight * 0.5 * (F * F).sum()
-            if self.ncon > 0:
-                val = val + (self.cons(z, d) * w).sum()
-            return val
+        def one():
+            def lag(z, w, d):
+                F = self.residual(z, d)
+                val = obj_weight * 0.5 * (F * F).sum()
+                if self.ncon > 0:
+                    val = val + (self.cons(z, d) * w).sum()
+                return val
 
-        def one(z, w, u, d):
-            return jvp(grad(lambda zz: lag(zz, w, d)), (z,), (u,))[1]
+            return lambda z, w, u, d: jvp(grad(lambda zz: lag(zz, w, d)), (z,), (u,))[1]
 
-        return vmap(one, in_dims=(0, 0, 0, _dd(data)))(x, y, v, data)
+        return self._mapped(("hprod_lag", float(obj_weight)), one, 3, data)(x, y, v, data)
+
+
+def _weighted_hessian(fn):
+    """z, w, d ↦ Σᵢ wᵢ ∇²fnᵢ(z), forward over reverse: the JAX package's
+    ``hessian`` route, whose rounding the parity tests hold the port to
+    (reverse over reverse is faster here but moves the last bits, and
+    ``biggs_exp6_24``'s 902-iteration trajectory with them; PERF.md §6)."""
+    return hessian(lambda z, w, d: (fn(z, d) * w).sum())
+
+
+class _Trace:
+    """A one-instance callable recorded as aten operations (``make_fx``,
+    below ``torch.func``'s transforms) and replayed by TorchScript with the
+    graph executor's optimizations off (its peephole pass would drop an
+    ``x + 0``): the same operations in the same order, so the same bits,
+    without the transforms' Python (forward-mode AD runs Python reference
+    decompositions).  A callable that reads a value on the host cannot be
+    recorded (``make_fx`` raises)."""
+
+    def __init__(self, one, args):
+        from torch.fx.experimental.proxy_tensor import make_fx
+
+        # one input per leaf, also where two leaves hold the same tensor (the
+        # tracer would bind both to one input)
+        seen: set = set()
+        example = []
+        for t in _tensors(args, []):
+            example.append(t.clone() if id(t) in seen else t)
+            seen.add(id(t))
+        single = []
+
+        def flat(*xs):
+            out = one(*_refill(args, iter(xs)))
+            single.append(not isinstance(out, tuple))
+            return (out,) if single[-1] else tuple(out)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            gm = make_fx(flat)(*example)
+            self.fn = torch.jit.trace(gm, tuple(example), check_trace=False)
+        self.single = single[-1]
+
+    def __call__(self, leaves):
+        with torch.jit.optimized_execution(False):
+            out = self.fn(*leaves)
+        return out[0] if self.single else tuple(out)
+
+
+def _tensors(tree, out: list) -> list:
+    """Append the tensor leaves of a pytree (tuple, list, dict) to ``out``."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _tensors(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _tensors(v, out)
+    return out
+
+
+def _refill(tree, it):
+    """``tree`` with its tensor leaves taken from ``it``, in ``_tensors``'s order."""
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _refill(v, it) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_refill(v, it) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_refill(v, it) for v in tree)
+    return tree
+
+
+def _layout(tree):
+    """The structure, shapes and dtypes of a pytree, and its other leaves'
+    values (a trace's key: they are constants in it)."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _layout(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_layout(v) for v in tree)
+    return repr(tree)
+
+
+def _lane0(tree):
+    """Lane 0 of a data pytree whose leaves carry the batch axis."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[0]
+    if isinstance(tree, dict):
+        return {k: _lane0(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_lane0(v) for v in tree)
+    return tree[0]
 
 
 def _as_tensor(v, dtype, device):

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (cannoles_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --against DIR    # phases 3, 4 and 7's times, DIR's package, then this
+    python3 chip_smoke.py --against DIR    # phases 3, 4, 7 and 21's times, DIR's package, then this
 
 Phases, in order; a failed phase raises and the script exits nonzero:
 
@@ -43,8 +43,9 @@ Phases, in order; a failed phase raises and the script exits nonzero:
    factorization there, counted under ``torch.profiler``;
 8. large rung: ``bench.py``'s 8192×1024 problem, float32, Gauss–Newton,
    condensed, ``chol``, ``max_iter=30``, through ``CaNNOLeSSolver.solve()``
-   with the kernels (``pallas_chol_min=0``) and at the default seam, four
-   solves each and a fifth under ``torch.profiler`` (device busy time and
+   with the kernels (``pallas_chol_min=0``) and at the default seam, one
+   solver per seam, four solves each (the first with the solver's one-time
+   costs) and a fifth under ``torch.profiler`` (device busy time and
    the kernels with the most of it); ``first_order`` and max |x − x_true|
    ≤ 1e-3 on every solve;
 9. BA scene: ``large_bundle_adjustment(16, 300)`` (n = 996, m = 9,600,
@@ -72,6 +73,22 @@ walls are not shared with the pool's workers:
    sites pinned to IEEE bit-equal inside a TF32 scope, and an unpinned
    product not; phase 6 in float64 under 'bfloat16' and 'tensorfloat32'.
 
+Phase 21 (the solver's routes, ``core/segments.py``) runs after phase 20,
+also before the pool, whose workers would share the host it measures:
+
+21. ``biggs_exp6_24`` in float64 with the battery's uniform protocol
+   (``linsolve="ldlt"``, ``atol=0``, ``rtol=1e-5``, no time budget) on the
+   graph route to its end (``first_order``), then both routes capped at
+   ``HOST_PATH_CAP`` outer iterations: states, statuses and counters equal
+   bit for bit; and phase 4's headline with its rescue on both routes, two
+   reps each, every lane's state equal bit for bit.  Per route: host
+   checks, ms per check (the solve's clock over its checks), device
+   operations the host launches per check and kernels per check
+   (``torch.profiler``, ``HOST_PATH_PROFILED`` outer iterations), walls
+   (the headline's rung and rescue apart), the graphs captured and their
+   replays per segment; the LDLᵀ kernel's counter, set to 0 before the
+   phase, must rise.
+
 Phases 11 and 12 share one pool of worker processes (``battery.solve_index``,
 four processes) that solves the battery's 90 problems in three
 settings, the longest rows first: the uniform pass (no rescues and no
@@ -88,8 +105,8 @@ the card (``max_time=60``, the runner's default).
    same lane with the same status;
 12. battery on the card: solved and solved-uniform counts by family and by
    rescue, the slowest rows and the multistart rows' host syncs; at least
-   86/90 solved; one uniform solve (``beale``, float32) profiled for the
-   device's busy share;
+   86/90 solved; one uniform solve (``beale``, float32) profiled on a warm
+   solver for the device's busy share;
 13. deadline: the headline family through ``vsolve(max_time=...)`` at
    B = 65,536 (float32, ``chunk_size=16,384``, ``linsolve="auto"``, phase
    4's other settings): with ``max_time=0`` chunk 0's statuses equal phase
@@ -170,15 +187,23 @@ counters are set to 0 just before phase 8 and read after phase 10: the
 fused kernel must run in phases 8-9 and the block kernel in phase 10.  The
 LDLᵀ and fused Cholesky counters are set to 0 again before phase 20 and
 read after its two rungs: the BA rung must launch the one in every run,
-the large rung's kernel seam the other.  The
+the large rung's kernel seam the other.  The LDLᵀ counter is set to 0
+again before phase 21 and read after it: the headline must launch it.  On
+the graph route a kernel launched inside a captured segment counts once per
+replay (``core/segments.py``).  The
 last lines are the card's ``nvidia-smi`` line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
 
 ``--against DIR`` runs phase 4, then phase 3 and phase 7's times (without
 the plain versions; the LDLᵀ kernel at the two main-path shapes and the
-rescue's, and its host time per call) for the ``cannoles_tpu_torch`` under
-DIR (for example a ``git archive`` of another commit) and for this one,
-each in a fresh process, DIR first, and prints one JSON line for each.
+rescue's, and its host time per call), then phase 21's two workloads capped
+so that a package without the graph route fits (``biggs_exp6_24`` at
+``HOST_PATH_CAP`` outer iterations on the package's default route, the
+headline with its rescue), then the peak device memory of the large rung
+and of repeated ``vsolve`` calls whose rescues differ in size, for the
+``cannoles_tpu_torch`` under DIR (for example a ``git archive`` of another
+commit) and for this one, each in a fresh process, DIR first, and prints
+one JSON line for each.
 """
 
 from __future__ import annotations
@@ -379,15 +404,25 @@ def ldlt_host_us(dev, N=5, B=256, calls=1000, loops=5):
 
 @contextlib.contextmanager
 def _ldlt_shapes():
-    """Counts the solver's fused LDLᵀ calls by (N, B), the calls inside the
-    rescue pass apart, by wrapping ``core.solver.fused_ldlt_solve`` and
-    ``parallel.batch._rescue_unsolved`` for the time of the block."""
+    """Counts the solver's fused LDLᵀ launches by (N, B), those inside the
+    rescue pass apart, for the time of the block: from the kernel's
+    ``BY_SHAPE`` counts (which graph replays add to) where the package has
+    them, else by wrapping ``core.solver.fused_ldlt_solve`` (a package
+    without the graph route); ``parallel.batch._rescue_unsolved`` is wrapped
+    to tell the rescue apart."""
     from cannoles_tpu_torch.core import solver as sv
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
     from cannoles_tpu_torch.parallel import batch as bt
 
     counts = {"main": {}, "rescue": {}}
     where = ["main"]
     fused, rescue = sv.fused_ldlt_solve, bt._rescue_unsolved
+    by_shape = getattr(fl, "BY_SHAPE", None)
+
+    def add(c, before):
+        for k, n in by_shape.items():
+            if n != before.get(k, 0):
+                c[k] = c.get(k, 0) + n - before.get(k, 0)
 
     def counted(W, rhs, tol):
         c = counts[where[0]]
@@ -397,16 +432,28 @@ def _ldlt_shapes():
 
     def in_rescue(*a, **k):
         where[0] = "rescue"
+        before = dict(by_shape) if by_shape is not None else None
         try:
             return rescue(*a, **k)
         finally:
             where[0] = "main"
+            if by_shape is not None:
+                add(counts["rescue"], before)
 
-    sv.fused_ldlt_solve, bt._rescue_unsolved = counted, in_rescue
+    start = dict(by_shape) if by_shape is not None else None
+    bt._rescue_unsolved = in_rescue
+    if by_shape is None:
+        sv.fused_ldlt_solve = counted
     try:
         yield counts
     finally:
         sv.fused_ldlt_solve, bt._rescue_unsolved = fused, rescue
+        if by_shape is not None:
+            # everything since the start, less what the rescue launched
+            for k, n in by_shape.items():
+                d = n - start.get(k, 0) - counts["rescue"].get(k, 0)
+                if d:
+                    counts["main"][k] = d
 
 
 def _by_shape(counts):
@@ -758,9 +805,9 @@ def _busy_s(intervals):
 
 def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
     """One ``linsolve="chol"`` cell at both seams (``pallas_chol_min=0``: the
-    Cholesky kernels; default: ``torch.linalg.cholesky``): the process's
-    first solve at each seam, ``warm`` more, then one under
-    ``torch.profiler``.  Every solve must end ``first_order`` with max
+    Cholesky kernels; default: ``torch.linalg.cholesky``): one solver per
+    seam, its first solve (with the solver's one-time warm-up and graph
+    captures), ``warm`` more, then one under ``torch.profiler``.  Every solve must end ``first_order`` with max
     |x − x_true| ≤ ``bar`` and launch the fused kernel at the kernel seam
     only.  For the profiled solve: the device's busy time (the union of the
     intervals of the events whose device is the card, each kernel once),
@@ -775,11 +822,13 @@ def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
     dev = pb.x0.device
     xt = torch.as_tensor(x_true, device=dev, dtype=torch.float64)
     out = {}
+    solvers = {pcm: CaNNOLeSSolver(pb, kkt="condensed", linsolve="chol", pallas_chol_min=pcm,
+                                   dtype=torch.float32, device=dev, **solver_kw) for pcm in (0, None)}
 
     def solve(pcm, label):
         seam = "kernel" if pcm == 0 else "default"
-        s = CaNNOLeSSolver(pb, kkt="condensed", linsolve="chol", pallas_chol_min=pcm,
-                           dtype=torch.float32, device=dev, **solver_kw)
+        s = solvers[pcm]
+        h0 = s.host_syncs
         l0 = bc.FUSED_LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -788,8 +837,9 @@ def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
         wall = time.perf_counter() - t0
         launches = bc.FUSED_LAUNCHES - l0
         err = float((torch.as_tensor(st.solution, device=dev, dtype=torch.float64) - xt).abs().max())
-        _log(f"  {name} ({seam} seam, {label}): {_solve_summary(st)}, wall {wall:.3f} s, "
-             f"max |x - x_true| {err:.3e}, fused kernel launches {launches}, host syncs {s.host_syncs}")
+        _log(f"  {name} ({seam} seam, {label}): {_solve_summary(st)}, wall {wall:.3f} s "
+             f"(solve clock {st.elapsed_time:.4f} s), max |x - x_true| {err:.3e}, fused kernel launches "
+             f"{launches}, host syncs {s.host_syncs - h0}")
         if st.status != "first_order" or not err <= bar:
             raise AssertionError(f"{name} ({seam} seam): {st.status}, error {err}")
         if (launches > 0) != (pcm == 0):
@@ -1054,11 +1104,12 @@ def _profiled_solve(dev, name):
 
     make = next(it[2] for it in collect() if it[1] == name)
     pb = make(dtype=torch.float32, device=dev)
-    CaNNOLeSSolver(pb, linsolve="ldlt").solve(atol=0.0, rtol=1e-5, max_time=60.0)  # warm
+    s = CaNNOLeSSolver(pb, linsolve="ldlt")
+    s.solve(atol=0.0, rtol=1e-5, max_time=60.0)  # warm: the solver's one-time costs and graph captures
+    h0 = s.host_syncs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s = CaNNOLeSSolver(pb, linsolve="ldlt")
         st = s.solve(atol=0.0, rtol=1e-5, max_time=60.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1066,10 +1117,10 @@ def _profiled_solve(dev, name):
     if not events:
         raise AssertionError("torch.profiler recorded no device operation in the battery solve")
     busy = _busy_s([(e.time_range.start, e.time_range.end) for e in events])
-    _log(f"  profiled solve {name} f32: {_solve_summary(st)}, host syncs {s.host_syncs}, "
+    _log(f"  profiled solve {name} f32: {_solve_summary(st)}, host syncs {s.host_syncs - h0}, "
          f"device busy {busy} s over {len(events)} events in a wall of {wall} s ({busy / wall:.4f})")
     return dict(problem=name, wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
-                device_events=len(events), host_syncs=s.host_syncs)
+                device_events=len(events), host_syncs=s.host_syncs - h0)
 
 
 def phase_battery(dev, pool_rows, pool_wall):
@@ -1951,6 +2002,245 @@ def phase_precision(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the solver's graph route against its eager route
+# ---------------------------------------------------------------------------
+# the battery row whose host checks set the pool's wall before the graph
+# route, and the outer iterations of its capped runs (the eager route here,
+# and both packages under --against: about a minute at the parent's 8 ms per
+# host check)
+HOST_PATH_ROW = "biggs_exp6_24"
+HOST_PATH_CAP = 100
+# outer iterations of the profiled window behind the device operations per
+# host check
+HOST_PATH_PROFILED = 20
+
+
+def _bits_differ(a, b):
+    """The fields of two states (or batches of them) that are not equal bit
+    for bit."""
+    bad = []
+    for f in a._fields[:-1]:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype.is_floating_point:
+            it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+            x, y = x.contiguous().view(it), y.contiguous().view(it)
+        if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+            bad.append(f)
+    return bad
+
+
+def _force_route(solver, route):
+    """Phase 21's switch: the same solver on the eager route (the rule's
+    route otherwise)."""
+    if route == "eager" and hasattr(solver, "route"):
+        solver.route, solver.route_reason = "eager", "chip_smoke phase 21"
+    return solver
+
+
+def _host_ops(fn):
+    """Device operations that the host launches (CUDA runtime launches,
+    copies and graph launches) and kernels the device runs, in one call of
+    ``fn``, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    launches = sum(1 for e in ev if e.device_type != DeviceType.CUDA
+                   and e.name.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset", "cudaGraphLaunch", "cuLaunch")))
+    kernels = sum(1 for e in ev if e.device_type == DeviceType.CUDA)
+    return launches, kernels
+
+
+def host_path_solve(dev, route, max_iter=-1, profiled=True):
+    """``biggs_exp6_24`` float64 uniform (``linsolve='ldlt'``, the battery
+    protocol) on ``route``: status, counters, host checks, the solve's clock
+    (after the warm-up), ms per check and the wall; with ``profiled``, the
+    device operations per check of a second solve capped at
+    ``HOST_PATH_PROFILED`` outer iterations."""
+    from cannoles_tpu_torch import CaNNOLeSSolver
+    from cannoles_tpu_torch.battery import collect
+
+    make = next(it[2] for it in collect() if it[1] == HOST_PATH_ROW)
+    pb = make(dtype=torch.float64, device=dev)
+    s = _force_route(CaNNOLeSSolver(pb, linsolve="ldlt"), route)
+    kw = dict(atol=0.0, rtol=1e-5, max_time=float("inf"), max_iter=max_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = s.solve(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(route=getattr(s, "route", "eager"), status=st.status, iter=st.iter,
+               **{k: st.solver_specific[k] for k in ("nfact", "nlinsolve", "nbk")},
+               host_syncs=s.host_syncs, solve_s=st.elapsed_time, wall_s=wall,
+               ms_per_sync=1e3 * st.elapsed_time / max(1, s.host_syncs),
+               graphs=len(s.graph_replays()) if hasattr(s, "graph_replays") else 0,
+               replays=s.graph_replays() if hasattr(s, "graph_replays") else {})
+    state = s.last_state
+    if profiled:
+        h0 = s.host_syncs
+        launches, kernels = _host_ops(lambda: s.solve(**{**kw, "max_iter": HOST_PATH_PROFILED}))
+        n = max(1, s.host_syncs - h0)
+        out.update(launches_per_sync=launches / n, kernels_per_sync=kernels / n)
+    _log(f"  {HOST_PATH_ROW} f64 {out['route']}{' capped' if max_iter >= 0 else ''}: {_solve_summary(st)}, "
+         f"host checks {out['host_syncs']}, solve {out['solve_s']:.3f} s ({out['ms_per_sync']:.4f} ms per "
+         f"check), wall {wall:.3f} s, launches/kernels per check "
+         f"{out.get('launches_per_sync', float('nan')):.1f}/{out.get('kernels_per_sync', float('nan')):.1f}, "
+         f"graphs {out['graphs']}")
+    return out, state
+
+
+def headline_rescue(dev, route, reps=2):
+    """Phase 4's headline (B = 65,536, float32, LM, full KKT, rescue) on
+    ``route``: the rung's wall and the rescue's (the time inside
+    ``_rescue_unsolved``), host checks, launches; the last rep's states."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
+    from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+    from cannoles_tpu_torch.parallel import batch as bt
+
+    dtype = torch.float32
+    pb = lm_bench_family(dtype, dev)
+    solver = _force_route(CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full",
+                                         dtype=dtype, device=dev), route)
+    x0, d = lm_bench_batch(65536, seed=0)
+    x0s = torch.as_tensor(x0, dtype=dtype, device=dev)
+    datas = torch.as_tensor(d, dtype=dtype, device=dev)
+    spent = [0.0]
+    rescue = bt._rescue_unsolved
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return rescue(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+
+    runs = []
+    bt._rescue_unsolved = timed
+    try:
+        for _ in range(reps):
+            spent[0] = 0.0
+            syncs0 = _all_syncs(solver)
+            l0 = fl.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=50, chunk_size=16384,
+                         max_eval=48, rescue=True)
+            torch.cuda.synchronize()
+            runs.append(dict(wall_s=time.perf_counter() - t0, rescue_s=spent[0],
+                             host_syncs=_all_syncs(solver) - syncs0, launches=fl.LAUNCHES - l0,
+                             solved=int(res.summary()["solved"])))
+    finally:
+        bt._rescue_unsolved = rescue
+    _log(f"  headline {getattr(solver, 'route', 'eager')}: " + "; ".join(
+        f"wall {r['wall_s']:.3f} s (rescue {r['rescue_s']:.3f} s), checks {r['host_syncs']}, "
+        f"launches {r['launches']}, solved {r['solved']}" for r in runs))
+    return runs, res.states
+
+
+def _all_syncs(solver):
+    return solver.host_syncs + sum(s.host_syncs for s in solver.__dict__.get("_rescue_siblings", {}).values())
+
+
+def phase_host_path(dev):
+    """Phase 21: ``biggs_exp6_24`` float64 uniform and the headline's
+    rescue through the graph route and the eager route: bit-equal states;
+    per route host checks, ms per check, device operations per check, walls;
+    the graphs captured and their replays per segment."""
+    from cannoles_tpu_torch.core import segments
+
+    t21 = time.perf_counter()
+    cap0 = segments.CAPTURE_SECONDS[0]
+    full, _ = host_path_solve(dev, "graph")
+    if full["status"] != "first_order":
+        raise AssertionError(f"phase 21: {HOST_PATH_ROW} on the graph route ended {full['status']}")
+    capped = {}
+    states = {}
+    for route in ("graph", "eager"):
+        capped[route], states[route] = host_path_solve(dev, route, max_iter=HOST_PATH_CAP)
+    bad = _bits_differ(states["graph"], states["eager"])
+    keys = ("status", "iter", "nfact", "nlinsolve", "nbk", "host_syncs")
+    if bad or any(capped["graph"][k] != capped["eager"][k] for k in keys):
+        raise AssertionError(f"phase 21: {HOST_PATH_ROW} graph vs eager route differ: fields {bad}, "
+                             f"{[(k, capped['graph'][k], capped['eager'][k]) for k in keys]}")
+    _log(f"  {HOST_PATH_ROW}: graph and eager routes bit-equal over {HOST_PATH_CAP + 1} outer iterations; "
+         f"ms per check {capped['graph']['ms_per_sync']:.4f} vs {capped['eager']['ms_per_sync']:.4f}")
+    head, hstates = {}, {}
+    for route in ("graph", "eager"):
+        head[route], hstates[route] = headline_rescue(dev, route)
+    bad = _bits_differ(hstates["graph"], hstates["eager"])
+    if bad:
+        raise AssertionError(f"phase 21: headline graph vs eager route differ in {bad}")
+    _log("  headline: graph and eager routes bit-equal, rescue included")
+    out = dict(full=full, capped=capped, headline=head,
+               capture_s=segments.CAPTURE_SECONDS[0] - cap0, wall_s=time.perf_counter() - t21)
+    _log(f"  phase 21 took {out['wall_s']:.1f} s (graph captures {out['capture_s']:.2f} s)")
+    return out
+
+
+def peak_memory(dev, draws=4):
+    """Peak device memory (GB, allocated and reserved by the caching
+    allocator, whose reserve holds the graph pools) on the package's
+    default route, each workload on one solver kept alive to the end: the
+    large rung (8192x1024 f32, ``chol``, three solves), and ``draws``
+    ``vsolve`` calls with the rescue (the headline's family, B = 16,384,
+    one draw each, so each rescue solves another number of lanes); the
+    banks each solver and its rescue siblings keep."""
+    import gc
+
+    from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
+    from cannoles_tpu_torch.models.families import large_rung_problem, lm_bench_batch, lm_bench_family
+
+    def banks(solver):
+        sibs = solver.__dict__.get("_rescue_siblings", {}).values()
+        return sum(len(getattr(x, "_banks", {})) for x in (solver, *sibs))
+
+    def measured(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        a0, r0 = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        info = fn()
+        torch.cuda.synchronize()
+        return dict(wall_s=time.perf_counter() - t0, base_allocated_gb=a0 / 1e9, base_reserved_gb=r0 / 1e9,
+                    peak_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+                    end_reserved_gb=torch.cuda.memory_reserved(dev) / 1e9, **info)
+
+    out = {}
+    pb, _, _ = large_rung_problem(dtype=torch.float32, device=dev)
+    s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol", block_size=256,
+                       dtype=torch.float32, device=dev)
+    out["large_rung"] = measured(lambda: dict(statuses=[s.solve(max_iter=30, max_time=600.0).status
+                                                        for _ in range(3)], banks=banks(s)))
+    del s, pb
+    fam = lm_bench_family(torch.float32, dev)
+    s = CaNNOLeSSolver(fam, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=dev)
+
+    def repeated():
+        solved = []
+        for seed in range(draws):
+            x0, d = lm_bench_batch(16384, seed=seed)
+            res = vsolve(fam, torch.as_tensor(x0, dtype=torch.float32, device=dev), solver=s,
+                         data_batch=torch.as_tensor(d, dtype=torch.float32, device=dev), max_iter=50,
+                         chunk_size=16384, max_eval=48, rescue=True)
+            solved.append(int(res.summary()["solved"]))
+        return dict(solved=solved, banks=banks(s), siblings=len(s.__dict__.get("_rescue_siblings", {})))
+
+    out["repeated_vsolve_rescue"] = measured(repeated)
+    _log("  peak device memory: " + "; ".join(
+        f"{k} allocated {v['peak_allocated_gb']:.3f} GB, reserved {v['peak_reserved_gb']:.3f} GB "
+        f"(end {v['end_reserved_gb']:.3f}), banks {v['banks']}" for k, v in out.items()))
+    return out
+
+
 def _stop(runs):
     for p, f in runs.values():
         if p.poll() is None:
@@ -1960,8 +2250,12 @@ def _stop(runs):
 
 
 def measure(root: str) -> int:
-    """``--measure``: phase 4, then phase 3 and phase 7's times, nothing
-    else, for the package under ``root``; prints one JSON line."""
+    """``--measure``: phase 4, then phase 3 and phase 7's times, then phase
+    21's two workloads capped (``biggs_exp6_24`` f64 at ``HOST_PATH_CAP``
+    outer iterations on the package's default route, with the device
+    operations per host check; the headline with its rescue, two reps),
+    then ``peak_memory``, nothing else, for the package under ``root``;
+    prints one JSON line."""
     sys.path.insert(0, root)
     from cannoles_tpu_torch.ops import _native
 
@@ -1974,7 +2268,12 @@ def measure(root: str) -> int:
     shapes = [(5, 16384), (73, 256)] + ([tuple(head["rescue_shape"])] if head["rescue_shape"] else [])
     ldlt = ldlt_times(dev, shapes, plain=False)
     ldlt["host_us_per_call N=5 B=256"] = ldlt_host_us(dev)
-    _log(json.dumps({"root": root, "headline": head, "ldlt": ldlt, "chol": chol_times(dev, plain=False)}))
+    chol = chol_times(dev, plain=False)
+    biggs, _ = host_path_solve(dev, "graph", max_iter=HOST_PATH_CAP)
+    rescue, _ = headline_rescue(dev, "graph")
+    memory = peak_memory(dev)
+    _log(json.dumps({"root": root, "headline": head, "ldlt": ldlt, "chol": chol,
+                     "host_path": {"biggs_capped": biggs, "headline_rescue": rescue}, "memory": memory}))
     return 0
 
 
@@ -1996,7 +2295,8 @@ def against(other: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="compare phase 4's wall and phases 3 and 7's times with the package in DIR")
+                    help="compare phase 4's wall, phases 3 and 7's times and phase 21's capped "
+                         "workloads with the package in DIR")
     ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2072,6 +2372,15 @@ def main() -> int:
     prec["wall_s"] = time.perf_counter() - t20
     _log(f"  phase 20 took {prec['wall_s']:.1f} s")
 
+    # phase 21 before the pool too: its walls and ms per host check are
+    # the host's, which the pool's workers would share
+    fl.LAUNCHES = 0
+    _phase("phase 21: the graph route against the eager route (biggs_exp6_24 f64, the headline's rescue)")
+    host_path = phase_host_path(dev)
+    host_path["launches"] = fl.LAUNCHES
+    if host_path["launches"] <= 0:
+        raise AssertionError("phase 21: the headline did not launch the fused LDLT kernel")
+
     # the battery's solves are host-bound: with 8 workers on an H100's
     # 8-CPU host every row ran at half the speed it has beside two others
     # (biggs_exp6_24 on the CPU: 318 s against 160 s), and its card row,
@@ -2140,6 +2449,8 @@ def main() -> int:
         "launches_config5_per_rank": sharded["cfg5"]["launches"],
         # phase 20: the BA rung under the six matmul_precision settings
         "launches_precision": prec_launches["fused_ldlt"],
+        # phase 21: the headline on both routes, two reps each
+        "launches_host_path": host_path["launches"],
     }, {
         "name": "chol_fused",
         "route": "cuda",
@@ -2174,7 +2485,7 @@ def main() -> int:
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},
-        "matmul_precision": prec}))
+        "matmul_precision": prec, "host_path": host_path}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

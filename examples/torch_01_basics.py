@@ -43,11 +43,15 @@ stats = cannoles(constrained, verbose=1)
 print("solution:", stats.solution, " multipliers:", stats.multipliers)
 
 # ---- reusable solver: warm starts -----------------------------------------
-# The last start ends max_eval (100,000 evaluations) in 2 iterations.  The
-# JAX twin gets there within solve()'s default 30 s budget; the port's
-# single solve makes a host round trip per evaluation (about 93,000 here,
-# a minute on a CPU, more on a card), so the budget here is 120 s.
+# The last start ends max_eval (100,000 evaluations) in 2 iterations, with
+# one host check per ρ attempt, line-search trip and inner iteration (71,445
+# here).  The JAX twin gets there within solve()'s default 30 s budget.  On
+# one idle CPU thread the port took 28.0 s (115.1 s before its evaluators
+# were built once and its derivatives traced, and its host checks cut;
+# `python -m cannoles_tpu_torch.host_timings --device cpu --what solves`,
+# PERF.md); on an H100 each segment between two checks is one CUDA graph
+# replay.  The budget stays 120 s.
 solver = CaNNOLeSSolver(constrained, method="gauss_newton", kkt="condensed")
 for x0 in ([0.0, 0.0], [3.0, -2.0], [-5.0, 5.0]):
     s = solver.solve(x0=torch.tensor(x0, dtype=solver.dtype, device=solver.device), max_time=120.0)
-    print(f"from {x0}: {s.status} in {s.iter} iters -> {s.solution}")
+    print(f"from {x0}: {s.status} in {s.iter} iters ({s.elapsed_time:.1f} s) -> {s.solution}")

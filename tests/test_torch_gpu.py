@@ -518,3 +518,111 @@ def test_vsolve_f64_on_card_matches_cpu_under_each_mode(cuda, mode):
     for f in ("status", "iter", "nfact", "nbk", "nlinsolve", "msg"):
         assert torch.equal(getattr(g.states, f).cpu(), getattr(c.states, f)), f
     np.testing.assert_allclose(g.solution, c.solution, rtol=0, atol=1e-10)
+
+
+def _bits_equal(a, b):
+    """Two states (or batches of them) equal bit for bit, field by field."""
+    for f in a._fields[:-1]:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype.is_floating_point:
+            it = {4: torch.int32, 8: torch.int64}[x.element_size()]
+            x, y = x.contiguous().view(it), y.contiguous().view(it)
+        assert torch.equal(x, y), f
+
+
+def _eager(solver):
+    solver.route, solver.route_reason = "eager", "test"
+    return solver
+
+
+def test_graph_route_equals_eager_route_at_b1_on_card(cuda):
+    """B = 1 (a battery solve, ``biggs_exp6_24`` f64, capped at 60 outer
+    iterations, and example 01's constrained problem with the eigh fallback
+    ladder, whose attempts run eagerly on the graph route): the graph
+    route's states, counters and host checks equal the eager route's bit
+    for bit."""
+    from cannoles_tpu_torch import battery, nls_problem
+
+    make = next(it[2] for it in battery.collect() if it[1] == "biggs_exp6_24")
+
+    def ex01():
+        return nls_problem(lambda x: torch.stack([x[0] - 1, 10 * (x[1] - x[0] ** 2)]), [-1.2, 1.0], 2,
+                           cons=lambda x: (x[0] + x[1]).reshape(1), lcon=[1.0], ucon=[1.0], device=cuda)
+
+    cases = [(lambda: make(dtype=torch.float64, device=cuda), dict(linsolve="ldlt"),
+              dict(atol=0.0, rtol=1e-5, max_iter=60)),
+             (ex01, dict(robust_fallback=True), dict())]
+    for build, kw, solve_kw in cases:
+        runs = []
+        for route in ("graph", "eager"):
+            s = CaNNOLeSSolver(build(), **kw)
+            assert s.route == "graph" and s.route_reason == "cuda"
+            if route == "eager":
+                _eager(s)
+            st = s.solve(max_time=600.0, **solve_kw)
+            runs.append((s, st))
+        (g, a), (e, b) = runs
+        assert sum(g.graph_replays().values()) > 0 and e.graph_replays() == {}
+        assert (a.status, a.iter, a.solver_specific) == (b.status, b.iter, b.solver_specific)
+        assert g.host_syncs == e.host_syncs
+        _bits_equal(g.last_state, e.last_state)
+
+
+def test_graph_route_equals_eager_route_at_b48_on_card(cuda):
+    """B = 48 (the headline family's rescue size, float32, LM, full KKT,
+    the fused LDLᵀ kernel, with the rescue): every lane bit-equal between
+    the routes, and the kernel's launches counted alike (a replay adds what
+    its capture launched)."""
+    x0, d = lm_bench_batch(48, seed=0)
+    runs = []
+    for route in ("graph", "eager"):
+        pb = lm_bench_family(torch.float32, cuda)
+        s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=cuda)
+        if route == "eager":
+            _eager(s)
+        l0, by0 = tfused.LAUNCHES, dict(tfused.BY_SHAPE)
+        res = vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=cuda),
+                     data_batch=torch.as_tensor(d, dtype=torch.float32, device=cuda), solver=s,
+                     max_iter=50, max_eval=48, rescue=True)
+        torch.cuda.synchronize()
+        by = {k: n - by0.get(k, 0) for k, n in tfused.BY_SHAPE.items() if n != by0.get(k, 0)}
+        runs.append((res.states, tfused.LAUNCHES - l0, by))
+    (a, la, ba), (b, lb, bb) = runs
+    _bits_equal(a, b)
+    assert la == lb > 0 and ba == bb and sum(ba.values()) == la
+
+
+def test_graph_route_raises_on_a_residual_with_host_data(cuda):
+    """A residual that builds a tensor from host data at every call cannot
+    be captured: the graph route raises ``GraphCaptureError`` naming the
+    problem and the segment, and never falls back to the eager route."""
+    from cannoles_tpu_torch import nls_problem
+    from cannoles_tpu_torch.core.segments import GraphCaptureError
+
+    def residual(x):
+        return x - torch.tensor([1.0, 2.0], dtype=x.dtype, device=x.device)
+
+    pb = nls_problem(residual, [0.0, 0.0], 2, device=cuda, name="host_data")
+    with pytest.raises(GraphCaptureError, match=r"host_data.*segment"):
+        CaNNOLeSSolver(pb).solve(max_time=60.0)
+    torch.cuda.synchronize()
+    s = _eager(CaNNOLeSSolver(pb))
+    assert s.solve(max_time=60.0).status == "first_order"
+
+
+def test_mesh_and_cpp_take_the_eager_route_on_card(cuda):
+    """The route rule: a row mesh (its all-reduces go through the host) and
+    ``linsolve='cpp'`` (a host round trip per attempt) take the eager route,
+    recorded on the solver; a plain solver on the card takes the graph
+    route."""
+    from cannoles_tpu_torch.models.families import bundle_adjustment
+    from cannoles_tpu_torch.parallel.mesh import make_row_mesh
+
+    pb = bundle_adjustment(n_cams=3, n_pts=16, noise=0.0, device=cuda)[0]
+    s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", mesh=make_row_mesh(device=cuda))
+    assert (s.route, s.route_reason) == ("eager", "mesh")
+    c = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="cpp")
+    assert (c.route, c.route_reason) == ("eager", "cpp")
+    assert c.solve(max_time=600.0, max_iter=3).iter >= 1 and c.graph_replays() == {}
+    g = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed")
+    assert (g.route, g.route_reason) == ("graph", "cuda")

@@ -235,8 +235,8 @@ def test_run_and_matfree_scopes(flags):
     pj, pt, _ = _rosen(torch.float64)
     s = tc.CaNNOLeSSolver(pt, matmul_precision="highest")
     seen = []
-    orig = s._outer_step
-    s._outer_step = lambda *a: (seen.append(flags.fp32_precision), orig(*a))[1]
+    orig = s._outer  # one outer step of run(), on the run's bank
+    s._outer = lambda *a: (seen.append(flags.fp32_precision), orig(*a))[1]
     tc.multistart(pt, n_starts=4, solver=s)
     assert set(seen) == {"ieee"} and flags.fp32_precision == "tf32"
     mf = tc.MatrixFreeSolver(pt)

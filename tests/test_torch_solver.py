@@ -2,6 +2,8 @@
 counters, internal_msg and solution through ``CaNNOLeSSolver.solve()`` and
 ``cannoles()``, plus a mid-trajectory resume of a JAX state in the port."""
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,16 +202,41 @@ def test_max_time_is_read_inside_an_outer_step(monkeypatch):
     """After the first outer step, solve()'s budget is read at every host
     sync: a step that it interrupts is dropped and the last outer iterate
     comes back with status max_time, equal to a solve stopped there by
-    max_iter.  The clock is faked: one second per reading."""
+    max_iter.  The clock is faked: it advances one second at each reading
+    by the solver.  The budget is set from an unbudgeted solve's readings,
+    so that it runs out at the last reading taken at a host sync, inside
+    the last outer step."""
     from cannoles_tpu_torch.core import solver as solver_mod
     from cannoles_tpu_torch.models import chained_rosenbrock
 
     pb = chained_rosenbrock(device="cpu")
-    clock = iter(range(10**6))
-    monkeypatch.setattr(solver_mod.time, "time", lambda: float(next(clock)))
+
+    def fake_clock(log):
+        now = [0]
+
+        def read():
+            code = sys._getframe(1).f_code
+            if code.co_filename == solver_mod.__file__:  # the solver's readings advance the clock
+                log.append(code.co_name)
+                now[0] += 1
+            return float(now[0] - 1)
+
+        return read
+
+    free = []
+    monkeypatch.setattr(solver_mod.time, "time", fake_clock(free))
+    tc.CaNNOLeSSolver(pb).solve(max_time=1e9)
+    start = free.index("solve")  # the clock's value at the solve's start
+    last = len(free) - 1 - free[::-1].index("_check")  # the last reading at a host sync
+    assert start < last
+    timed = []
+    monkeypatch.setattr(solver_mod.time, "time", fake_clock(timed))
     s = tc.CaNNOLeSSolver(pb)
-    st = s.solve(max_time=60.0)
+    st = s.solve(max_time=last - start - 0.5)
     monkeypatch.undo()
+    # the budgeted solve read the clock as the free one did, up to the
+    # reading at a host sync that ended it (then once more for the stats)
+    assert timed[:last + 1] == free[:last + 1] and len(timed) == last + 2
     assert st.status == "max_time" and st.iter >= 2
     ref = tc.CaNNOLeSSolver(pb)
     r = ref.solve(max_iter=st.iter - 1, max_time=600.0)  # max_iter stops after iteration max_iter + 1
