@@ -11,6 +11,14 @@ ranks: every rank is given the whole batch, as JAX's global array, solves
 its B/k lanes on its own device through the same path (rescue included)
 and gets the whole ``BatchResult`` back, the same on every rank
 (``_gather_lanes``).
+
+``mesh=`` may also be a 2-D mesh (``make_mesh_2d``): the lanes split over
+its ``batch`` axis as above, and each lane's residual rows over its
+``rows`` axis.  The solver holds the rank's row block
+(``CaNNOLeSSolver(mesh=rows)``, the condensed KKT, eagerly) and reduces
+each lane's sums over the row group; the data batch is cut to the rank's
+rows only where ``row_block`` chose the local residual
+(``row_block_batch``).  The gather runs over the batch axis alone.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -34,9 +42,9 @@ from ..core.status import Status
 from ..ops.fused_ldlt import max_n
 from ..problem import NLSProblem
 from ..utils.convert import tree_to_torch
-from .mesh import Mesh, make_batch_mesh
+from .mesh import Mesh, Mesh2D, make_batch_mesh, make_mesh_2d, row_block_batch
 
-__all__ = ["vsolve", "BatchResult", "make_batch_mesh"]
+__all__ = ["vsolve", "BatchResult", "make_batch_mesh", "make_mesh_2d"]
 
 
 @dataclasses.dataclass
@@ -113,7 +121,7 @@ def vsolve(
     method: str = "newton",
     linsolve: str = "auto",
     kkt: str = "auto",
-    mesh: Optional[Mesh] = None,
+    mesh: Optional[Union[Mesh, Mesh2D]] = None,
     max_iter: int = 100,
     chunk_size: Optional[int] = None,
     max_time: Optional[float] = None,
@@ -133,7 +141,12 @@ def vsolve(
     ``mesh``: a batch mesh; every rank calls ``vsolve`` with the whole batch
     (B must divide evenly over the ranks), solves its own contiguous B/k
     lanes and returns the whole result.  ``chunk_size`` is ignored under a
-    mesh (with a warning), and ``max_time`` requires ``mesh=None``.
+    mesh (with a warning), and ``max_time`` requires ``mesh=None``.  With
+    a 2-D mesh the ranks of a row group solve the same lanes, each on its
+    rows (m must divide evenly too), under a solver on the row axis
+    (``kkt='auto'`` means the condensed system there; a given solver
+    without a mesh is rebuilt on it); the result's row-sized fields (``Fx``,
+    ``JxT``, ``r``, the residual part of ``primal``) hold the rank's rows.
 
     ``linsolve='auto'`` takes the fused LDLᵀ kernel ('pallas') where the
     KKT size fits the kernel's cap (``ops.fused_ldlt.max_n``), else the
@@ -160,6 +173,11 @@ def vsolve(
     lanes that were dispatched.
     """
     problem.validate_for_solve()
+    rows = None
+    if isinstance(mesh, Mesh2D):
+        mesh, rows = mesh.batch, mesh.rows
+        if kkt == "auto":
+            kkt = "condensed"
     if mesh is not None and device is None:
         device = mesh.device
     if solver is None:
@@ -176,8 +194,11 @@ def vsolve(
             else:
                 linsolve = "ldlt"
         solver = CaNNOLeSSolver(
-            problem, method=method, linsolve=linsolve, kkt=kkt, dtype=dtype, device=device
+            problem, method=method, linsolve=linsolve, kkt=kkt, dtype=dtype,
+            device=None if rows is not None else device, mesh=rows,
         )
+    elif rows is not None and solver.mesh != rows:
+        solver = solver._rebuilt(problem, rows)
     dev, dt = solver.device, solver.dtype
     x0_batch = torch.as_tensor(x0_batch).to(dtype=dt, device=dev)
     B = x0_batch.shape[0]
@@ -185,6 +206,9 @@ def vsolve(
         lam0_batch = problem.y0.to(dtype=dt, device=dev).expand(B, problem.ncon)
     lam0_batch = torch.as_tensor(lam0_batch).to(dtype=dt, device=dev)
     data_batch = tree_to_torch(data_batch, device=dev, dtype=dt)
+    whole = data_batch
+    if rows is not None:
+        data_batch = row_block_batch(data_batch, problem, solver.problem, rows)
     cfg = solver.make_config(max_iter=max_iter, **numeric)
 
     if max_time is not None:
@@ -222,9 +246,10 @@ def vsolve(
         part = BatchResult(states=solver.run(x0_l, lam0_l, cfg, data_l), solver=solver)
         if rescue:
             part = _rescue_unsolved(
-                solver, part, x0_l, lam0_l, data_l, cfg, skip_stage1=solver.quality_gate
+                solver, part, x0_l, lam0_l, data_l, cfg, skip_stage1=solver.quality_gate,
+                problem=problem if solver.mesh is not None else None,
             )
-        states = _gather_lanes(part.states, mesh, B, lanes, data_batch)
+        states = _gather_lanes(part.states, mesh, B, lanes, whole)
         return BatchResult(states=states, solver=solver)
     if use_chunks:
         parts = []
@@ -284,7 +309,8 @@ def _gather_lanes(part: SolverState, mesh: Mesh, B: int, lanes: slice, data) -> 
 
 
 def _rescue_unsolved(
-    solver, result, x0_batch, lam0_batch, data_batch, cfg, skip_stage1=False, eligible=None
+    solver, result, x0_batch, lam0_batch, data_batch, cfg, skip_stage1=False, eligible=None,
+    problem=None,
 ):
     """Three-stage re-solve of the unsolved lanes, merged back in place.
 
@@ -296,7 +322,9 @@ def _rescue_unsolved(
     stage.  ``eligible``: an optional boolean lane mask restricting which
     unsolved lanes may be rescued (deadline dispatch excludes lanes never
     run).  The siblings keep the primary solver's options (its
-    ``matmul_precision`` too) and are cached on it.  The JAX package
+    ``matmul_precision`` and row mesh too) and are cached on it; a solver
+    on a row mesh passes the whole ``problem``, which its siblings cut as
+    it was cut.  The JAX package
     pads each subset to a power of two to bound its compiled shapes; here
     the subset runs at its own size, and the merge is an ``index_copy``
     into the full state."""
@@ -342,17 +370,19 @@ def _rescue_unsolved(
                 matmul_precision=solver.matmul_precision,
                 dtype=solver.dtype,
                 device=solver.device,
+                mesh=solver.mesh,
             )
+            whole = solver.problem if problem is None else problem
             if kind == "gated":
                 sib = CaNNOLeSSolver(
-                    solver.problem,
+                    whole,
                     linsolve=solver.linsolve,
                     quality_gate=True,
                     robust_fallback=solver.robust_fallback,
                     **common,
                 )
             else:
-                sib = CaNNOLeSSolver(solver.problem, linsolve="eigh", **common)
+                sib = CaNNOLeSSolver(whole, linsolve="eigh", **common)
             if solver.route == "eager":  # a solver put on the eager route keeps its siblings there
                 sib.route, sib.route_reason = solver.route, solver.route_reason
             cache[kind] = sib

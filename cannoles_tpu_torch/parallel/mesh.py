@@ -21,6 +21,12 @@ ranks on one device, and gloo reduces CUDA tensors through the host.
 Without an initialised process group the builders give a one-rank mesh whose
 collectives return their input: a plain single-process call behaves as the
 JAX package on one device.
+
+:func:`make_mesh_2d` lays nb × nr ranks out as JAX's ``devs.reshape(nb,
+nr)`` with axes ``("batch", "rows")``: rank r sits at (r // nr, r % nr).
+Its ``batch`` axis joins the ranks with the same row index (they hold
+different instance lanes), its ``rows`` axis the ranks with the same batch
+index (they hold the row blocks of the same lanes).
 """
 
 from __future__ import annotations
@@ -33,7 +39,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_row_mesh", "make_batch_mesh", "backend_for", "rank_device", "row_block"]
+__all__ = [
+    "Mesh", "Mesh2D", "make_row_mesh", "make_batch_mesh", "make_mesh_2d", "backend_for", "rank_device",
+    "row_block", "row_block_batch",
+]
 
 
 def backend_for(local_world: int) -> str:
@@ -132,6 +141,48 @@ def make_batch_mesh(group=None, *, device=None) -> Mesh:
     return _make("batch", group, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """This rank's two axes of an nb × nr mesh: ``batch`` splits instance
+    lanes, ``rows`` splits each instance's residual rows."""
+
+    batch: Mesh
+    rows: Mesh
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.batch.size, self.rows.size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+
+def make_mesh_2d(nb: int = 1, nr: int = 1, *, device=None) -> Optional[Mesh2D]:
+    """The (batch × rows) mesh over the first nb·nr ranks of the default
+    group, rank r at (r // nr, r % nr).  Every rank of the group must call
+    it (each makes every axis group, in the same order); a rank beyond the
+    first nb·nr gets None.  Without a process group only nb = nr = 1 is
+    possible: a 1 × 1 mesh whose collectives are the identity."""
+    nb, nr = int(nb), int(nr)
+    if nb < 1 or nr < 1:
+        raise ValueError(f"make_mesh_2d: nb and nr must be positive, got {nb} x {nr}")
+    if not dist.is_initialized():
+        if nb * nr != 1:
+            raise ValueError(f"make_mesh_2d({nb}, {nr}) needs {nb * nr} ranks: no process group is initialised")
+        return Mesh2D(_make("batch", None, device), _make("rows", None, device))
+    world, me = dist.get_world_size(), dist.get_rank()
+    if nb * nr > world:
+        raise ValueError(f"make_mesh_2d({nb}, {nr}) needs {nb * nr} ranks, the group has {world}")
+    # collectives: every rank makes every group, the row groups first
+    rows = [dist.new_group([b * nr + r for r in range(nr)]) for b in range(nb)]
+    batch = [dist.new_group([b * nr + r for b in range(nb)]) for r in range(nr)]
+    if me >= nb * nr:
+        return None
+    b, r = divmod(me, nr)
+    return Mesh2D(_make("batch", batch[r], device), _make("rows", rows[b], device))
+
+
 # ---------------------------------------------------------------------------
 # a problem's row block: the local view a rank of a row mesh solves
 # ---------------------------------------------------------------------------
@@ -154,14 +205,16 @@ def _to(device, copy=False):
     return leaf
 
 
-def _on_whole(fn, full, rows=None):
-    """``fn`` (its last argument the data) called on the whole data, and
-    cut to the rank's ``rows`` when given."""
+def _rows_of(fn, rows):
+    """``fn`` on the data it is given (the whole data), cut to ``rows``."""
+    return lambda *a: fn(*a)[rows]
+
+
+def _on_cut(fn, cut):
+    """``fn`` (its last argument the data) on ``cut`` of the data it is given."""
     if fn is None:
         return None
-    if rows is None:
-        return lambda *a: fn(*a[:-1], full)
-    return lambda *a: fn(*a[:-1], full)[rows]
+    return lambda *a: fn(*a[:-1], cut(a[-1]))
 
 
 def _rows_agree(F_local, F_rows) -> bool:
@@ -189,7 +242,9 @@ def row_block(problem, mesh: Mesh):
     the rank's rows of F, as GSPMD computes the global residual in JAX.  An
     error of the residual on the whole data is raised; one on the rows alone
     only means "not row-local".  Constraints always see the whole data, as
-    they do in JAX."""
+    they do in JAX: with constraints the problem keeps the whole data, and a
+    row-local residual (with its derivatives) takes its rows of the data it
+    is handed."""
     if problem.data is None:
         raise ValueError(
             "row-sharded solve needs per-residual `data` (leading axis = nequ) "
@@ -198,10 +253,12 @@ def row_block(problem, mesh: Mesh):
     m = problem.nequ
     rows = mesh.block(m, "row-sharded solve")
     dev = mesh.device
+    def cut(data):
+        return _tree_map(lambda a: a[rows] if np.ndim(a) >= 1 and np.shape(a)[0] == m else a, data)
+
     # the rank's rows are copies: the whole data stays on the device only
     # where a residual or the constraints need it
-    local = _tree_map(lambda a: _to(dev, copy=True)(a[rows] if np.ndim(a) >= 1 and np.shape(a)[0] == m else a),
-                      problem.data)
+    local = _tree_map(_to(dev, copy=True), cut(problem.data))
     full = _tree_map(_to(dev), problem.data)
     x0 = problem.x0.to(dev)
     F_rows = problem.residual(x0, full)[rows]
@@ -210,21 +267,48 @@ def row_block(problem, mesh: Mesh):
     except (RuntimeError, IndexError, ValueError):
         separable = False
     separable = not bool(mesh.any(torch.tensor([not separable], device=dev))[0])
-    if separable and problem.ncon == 0:
-        full = None
     mloc = rows.stop - rows.start
     res, jac, hrw = problem.residual, problem.jac_residual, problem.hess_residual_weighted
-    if not separable:
+    # the constraints always read the whole data the solver hands them
+    if separable and problem.ncon == 0:
+        data = local
+    elif separable:
+        data, res, jac, hrw = full, _on_cut(res, cut), _on_cut(jac, cut), _on_cut(hrw, cut)
+    else:
         # the derivatives of the rank's rows by autodiff of the cut residual
-        res, jac, hrw = _on_whole(res, full, rows), None, None
+        data, res, jac, hrw = full, _rows_of(res, rows), None, None
 
     def on(t):
         return None if t is None else t.to(dev)
 
     return dataclasses.replace(
-        problem, residual=res, nequ=mloc, x0=x0, data=local, y0=on(problem.y0),
+        problem, residual=res, nequ=mloc, x0=x0, data=data, y0=on(problem.y0),
         lcon=on(problem.lcon), ucon=on(problem.ucon), jac_residual=jac,
-        hess_residual_weighted=hrw, cons=_on_whole(problem.cons, full),
-        jac_cons=_on_whole(problem.jac_cons, full),
-        hess_cons_weighted=_on_whole(problem.hess_cons_weighted, full),
+        hess_residual_weighted=hrw,
     )
+
+
+def row_block_batch(data_batch, problem, block, mesh: Mesh):
+    """A batch of ``problem``'s data (leaves with a leading lane axis) as
+    ``block = row_block(problem, mesh)`` reads it: each leaf whose template
+    leaf ``row_block`` cut to the rank's rows is cut on its row axis (axis
+    1); the others, and every leaf where ``row_block`` chose the whole data,
+    stay whole.  Cutting a leaf ``row_block`` kept whole would hand the
+    residual or the constraints a part of the data they read whole."""
+    rows = mesh.block(problem.nequ, "row-sharded solve")
+
+    def walk(batch, whole, local):
+        if batch is None:
+            return None
+        if isinstance(batch, dict):
+            return {k: walk(batch[k], whole[k], local[k]) for k in batch}
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(walk(*t) for t in zip(batch, whole, local))
+        if np.shape(local) == np.shape(whole):
+            return batch
+        if np.shape(batch)[1:] != np.shape(whole):
+            raise ValueError(f"data_batch leaf of shape {tuple(np.shape(batch))} is not a batch of the "
+                             f"problem's leaf of shape {tuple(np.shape(whole))}")
+        return batch[:, rows].contiguous()
+
+    return walk(data_batch, problem.data, block.data)

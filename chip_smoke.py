@@ -172,6 +172,22 @@ the card (``max_time=60``, the runner's default).
    ``scaling_bench`` rows at k = 1, 2, 4 (printed, labelled
    ``one_card_shared``: not scaling); the 8,192-row curve fit in float64
    over 4 ranks on the card against 4 ranks on the CPU.
+22. the entry points (after phase 19, alone on the card), each through its
+   Python entry function, ranks spawned in fresh processes and sharing the
+   card: ``dryrun.dryrun_multichip(4)`` (the three mesh axes; 2 × 2 on the
+   2-D axis); ``bench_large.run()`` and ``run_sharded(2)`` (config 4 at
+   10,240 × 1,024: ``first_order``, max |x − x_true| ≤ 1e-3, the sharded
+   iter and nfact equal to the one-process run's); ``scaling.run(4096, 2)``
+   (rows at k = 1, 2 labelled ``one_card_shared``); ``bench_chol.run()``
+   (N = 256 … 4,096 in float32, nb = 128: both Cholesky kernels' counters,
+   set to 0 before it, must rise; every row ``ok`` with ``rel_err`` ≤ 1e-4;
+   the kernel against ``torch.linalg.cholesky_ex`` with CUDA events, and
+   the bound); ``perf_profile.run`` on six problems in float64 (six spawned
+   processes, one per problem, started at the phase's start): solved per
+   problem and configuration equal to JAX's CPU record but for
+   ``ENTRY_PROFILE_NAMED``;
+   ``mgh_battery.run(constrained=True, linsolve="auto")``: 14/14.  The
+   phase's wall and each piece's are printed.
 
 Phases 14 and 15 run in this process while the pool's workers solve the
 battery of phases 11-12 (no custom kernel runs in them: the Schur system
@@ -190,7 +206,8 @@ read after its two rungs: the BA rung must launch the one in every run,
 the large rung's kernel seam the other.  The LDLᵀ counter is set to 0
 again before phase 21 and read after it: the headline must launch it.  On
 the graph route a kernel launched inside a captured segment counts once per
-replay (``core/segments.py``).  The
+replay (``core/segments.py``).  The Cholesky counters are set to 0 again
+before phase 22's ``bench_chol`` and read after it: both must rise.  The
 last lines are the card's ``nvidia-smi`` line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
 
@@ -698,29 +715,108 @@ def phase_chol_kernels(dev):
     return worst, worst_ill
 
 
+# torch.profiler on the card goes through CUPTI, which lost device
+# operations on an H100 in two ways.  (1) Started early (in phase 1, or in
+# phase 2 after the kernels' libraries were loaded), it recorded only part
+# of the card's operations in every later session (phase 7: 5 to 7 of the
+# 11 of one factorization); started first at phase 7's reading, after a
+# warm call of what it reads, it recorded all 11 in every run but one.
+# So the profiler starts at the first reading (``_profiler_works``, called
+# from ``_profile_device``).  (2) A session that starts after the card has
+# idled for seconds may lose its first device operations; a spin kernel of
+# about 100 ms launched just before the session keeps the card busy across
+# the profiler's start, and the session's work queues behind it
+# (``_session``; launched before the session, the spin is in no reading).
+# A session that records no device operation (all 11 of phase 7's, in
+# that one run) is repeated, up to PROFILE_TRIES sessions.  Where the
+# first sessions around a plain kernel record nothing, the profiler does
+# not trace this card at all: the readings it would give are "not
+# measured" (None), and every check that does not read it still holds.
+PROFILE_TRIES = 3
+PROFILE_LEAD_CYCLES = 200_000_000  # ~100 ms at the H100's SM clock (≤ 1.98 GHz)
+_PROFILER_WORKS = None
+
+
+def _session(fn):
+    """``fn()`` and a synchronize under ``torch.profiler``, behind a spin
+    kernel launched just before the session: ``fn``'s value and the
+    session's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof.events()
+
+
+def _profiler_works(dev) -> bool:
+    """Whether ``torch.profiler`` records the card's operations in this
+    process: up to ``PROFILE_TRIES`` sessions around a plain kernel, the
+    first time a reading is profiled (they also start CUPTI, before the
+    first session that is read)."""
+    global _PROFILER_WORKS
+    if _PROFILER_WORKS is None:
+        from torch.autograd import DeviceType
+
+        x = torch.ones(1 << 20, device=dev)
+        seen = []
+        for _ in range(PROFILE_TRIES):
+            _, events = _session(lambda: x.mul_(1.0))
+            seen.append(sum(1 for e in events if e.device_type == DeviceType.CUDA))
+            if seen[-1]:
+                break
+        _PROFILER_WORKS = bool(seen[-1])
+        _log(f"  torch.profiler: device operations recorded per session {seen}"
+             + ("" if _PROFILER_WORKS else ": it does not trace this card; its readings are not measured"))
+    return _PROFILER_WORKS
+
+
+def _profile_device(fn, what):
+    """``fn()`` in a profiler session (``_session``): ``fn``'s value, the
+    session's events and those whose device is the card.  A session that
+    records no device operation is repeated (``fn`` runs again), and after
+    ``PROFILE_TRIES`` sessions the call raises.  Where the profiler does
+    not trace the card (``_profiler_works``), ``fn`` runs once, unprofiled,
+    and both lists are None."""
+    from torch.autograd import DeviceType
+
+    if not _profiler_works(torch.device("cuda", torch.cuda.current_device())):
+        out = fn()
+        torch.cuda.synchronize()
+        return out, None, None
+    for k in range(PROFILE_TRIES):
+        out, events = _session(fn)
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        if device:
+            return out, events, device
+        _log(f"  torch.profiler recorded no device operation in {what} (session {k + 1} of {PROFILE_TRIES})")
+    raise AssertionError(f"torch.profiler recorded no device operation in {what} in {PROFILE_TRIES} sessions")
+
+
 def _launches(fn):
     """One warm call of fn under ``torch.profiler``: the Cholesky wrappers'
     launches (fused, block) and the device operations by name (kernels,
-    copies and memsets: every event whose device is the card)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    copies and memsets: every event whose device is the card; None where
+    the profiler does not trace the card)."""
     from cannoles_tpu_torch.ops import block_chol as bc
 
     fn()
     torch.cuda.synchronize()
-    l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    counts = []
+
+    def counted():
+        l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
         fn()
-        torch.cuda.synchronize()
-    wrappers = (bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1])
+        counts.append((bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1]))
+
+    _, _, events = _profile_device(counted, "one factorization")
+    if events is None:
+        return counts[-1], None
     names = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
-    if not names:
-        raise AssertionError("torch.profiler recorded no device operation")
-    return wrappers, names
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
+    return counts[-1], names
 
 
 def chol_times(dev, plain=True):
@@ -745,9 +841,10 @@ def chol_times(dev, plain=True):
 
     def launches(name, fn):
         wrappers, names = _launches(fn)
-        ops = sum(names.values())
-        _log(f"  launches {name}: wrappers (fused, block) {wrappers}, device operations {ops}: "
-             + ", ".join(f"{n} {k[:60]}" for k, n in sorted(names.items(), key=lambda kv: -kv[1])))
+        ops = None if names is None else sum(names.values())
+        _log(f"  launches {name}: wrappers (fused, block) {wrappers}, device operations "
+             + ("not measured" if names is None else f"{ops}: " + ", ".join(
+                 f"{n} {k[:60]}" for k, n in sorted(names.items(), key=lambda kv: -kv[1]))))
         return dict(wrapper_launches_per_factorization=list(wrappers),
                     device_launches_per_factorization=ops)
 
@@ -813,8 +910,6 @@ def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
     intervals of the events whose device is the card, each kernel once),
     its share of the profiled wall and of the median wall, and the five
     kernels with the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cannoles_tpu_torch import CaNNOLeSSolver
     from cannoles_tpu_torch.ops import block_chol as bc
@@ -855,11 +950,11 @@ def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
             wall = solve(pcm, "first" if rep == 0 else "warm")
             out[seam].setdefault("walls_s", []).append(wall)
     for pcm, seam in ((0, "kernel"), (None, "default")):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = solve(pcm, "profiled")
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not events:
-            raise AssertionError(f"{name} ({seam} seam): torch.profiler recorded no device operation")
+        wall, _, events = _profile_device(lambda: solve(pcm, "profiled"), f"{name} ({seam} seam)")
+        if events is None:
+            _log(f"  {name} ({seam} seam): device busy time not measured (profiled wall {wall} s)")
+            out[seam].update(profiled_wall_s=wall, device_busy_s=None, device_events=None, top_kernels_ms=None)
+            continue
         busy = _busy_s([(e.time_range.start, e.time_range.end) for e in events])
         by_name = {}
         for e in events:
@@ -1096,9 +1191,6 @@ def phase_battery_parity(dev, pool_rows):
 def _profiled_solve(dev, name):
     """One uniform battery solve (float32 on the card) under
     ``torch.profiler``: the device's busy share of its wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cannoles_tpu_torch import CaNNOLeSSolver
     from cannoles_tpu_torch.battery import collect
 
@@ -1106,21 +1198,22 @@ def _profiled_solve(dev, name):
     pb = make(dtype=torch.float32, device=dev)
     s = CaNNOLeSSolver(pb, linsolve="ldlt")
     s.solve(atol=0.0, rtol=1e-5, max_time=60.0)  # warm: the solver's one-time costs and graph captures
-    h0 = s.host_syncs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def timed():
+        h0 = s.host_syncs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = s.solve(atol=0.0, rtol=1e-5, max_time=60.0)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise AssertionError("torch.profiler recorded no device operation in the battery solve")
-    busy = _busy_s([(e.time_range.start, e.time_range.end) for e in events])
-    _log(f"  profiled solve {name} f32: {_solve_summary(st)}, host syncs {s.host_syncs - h0}, "
-         f"device busy {busy} s over {len(events)} events in a wall of {wall} s ({busy / wall:.4f})")
-    return dict(problem=name, wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
-                device_events=len(events), host_syncs=s.host_syncs - h0)
+        return st, time.perf_counter() - t0, s.host_syncs - h0
+
+    (st, wall, syncs), _, events = _profile_device(timed, "the battery solve")
+    busy = None if events is None else _busy_s([(e.time_range.start, e.time_range.end) for e in events])
+    _log(f"  profiled solve {name} f32: {_solve_summary(st)}, host syncs {syncs}, device busy "
+         + ("not measured" if events is None else f"{busy} s over {len(events)} events")
+         + f" in a wall of {wall} s" + ("" if events is None else f" ({busy / wall:.4f})"))
+    return dict(problem=name, wall_s=wall, device_busy_s=busy, busy_share=None if events is None else busy / wall,
+                device_events=None if events is None else len(events), host_syncs=syncs)
 
 
 def phase_battery(dev, pool_rows, pool_wall):
@@ -1766,6 +1859,155 @@ def phase_sharded(dev, m=SHARD_CFG4[0], n=SHARD_CFG4[1], B5=SHARD_CFG5_B):
     return out
 
 
+# Phase 22: the entry points that a user (and the benchmark) calls, each
+# through its Python entry function, after phase 19 and alone on the card.
+# The ranks they spawn share the card (gloo): their walls check the sharded
+# programs, not scaling.  perf_profile runs its six problems in six
+# spawned processes from the phase's start (three of its runs spend the
+# runner's 30 s budget), beside the rest of the phase.
+ENTRY_DRYRUN_RANKS = 4  # nb = 2, nr = 2 on the dry run's 2-D axis
+ENTRY_SHARD = 2
+ENTRY_SCALING = (4096, 2)  # B, ranks
+ENTRY_CHOL_REL_ERR = 1e-4
+ENTRY_LARGE_ERR = 1e-3
+# one process per problem, the longest first, so that the budget-bound
+# runs overlap with each other and with the rest of the phase
+ENTRY_PROFILE_GROUPS = ({"jennrich_sampson"}, {"hs27"}, {"gulf_10"}, {"hs61"}, {"beale+linear"}, {"rosenbrock"})
+# (problem, configuration) whose solved flag on the card may differ from
+# JAX's CPU record (benchmarks/results_perf_profile_cpu.json), with why
+ENTRY_PROFILE_NAMED = {
+    ("hs27", "newton/full"): "the default configuration thrashes δ at its floor √eps; the CPU (JAX's "
+                             "record, max_eval) and the card part within the first iterations "
+                             "(BATTERY_STATUS), and the card may reach a first-order point",
+}
+
+
+def _check_profile(runs):
+    """Per problem and configuration, solved against JAX's CPU record."""
+    record = json.loads((pathlib.Path(__file__).resolve().parent / "benchmarks"
+                         / "results_perf_profile_cpu.json").read_text())
+    rows, bad = {}, []
+    for run in runs:
+        if run["errors"]:
+            bad.append(f"perf_profile errors {run['errors'][:3]}")
+        for part in ("unconstrained", "constrained"):
+            got, rec = run[part], record[part]
+            for i, name in enumerate(got["problems"]):
+                k = rec["problems"].index(name)
+                p = run["problems"].index(name)
+                solved = np.isfinite(got["time_costs"][i]).tolist()
+                want = np.isfinite(rec["time_costs"][k]).tolist()
+                rows[name] = dict(solved=solved, record=want, statuses=run["statuses"][p],
+                                  walls=run["walls"][p], neval=got["eval_costs"][i][:4])
+                for j, col in enumerate(got["configs"]):
+                    if solved[j] != want[j]:
+                        named = ENTRY_PROFILE_NAMED.get((name, col))
+                        _log(f"  perf_profile {name} {col}: solved {solved[j]} on the card, {want[j]} in "
+                             f"JAX's CPU record" + (f" (named: {named})" if named else " (unnamed)"))
+                        if not named:
+                            bad.append(f"perf_profile {name} {col}")
+    return rows, bad
+
+
+def _chol_row(r):
+    """A bench_chol row for the kernels line."""
+    return {k: r[k] for k in ("N", "kernel_ms", "cholesky_ms", "plain_ms", "bound_ms", "bound_by",
+                              "share_of_bound", "rel_err", "launches_fused", "launches_block")}
+
+
+def phase_entry_points(dev, large=(10_240, 1024), scaling_B=ENTRY_SCALING[0], chol_sizes=None):
+    """Phase 22: ``dryrun_multichip``, ``bench_large`` (alone and
+    ``--shard``), ``scaling``, ``bench_chol``, ``perf_profile`` on six
+    problems and ``mgh_battery --constrained --linsolve auto`` on the card.
+    ``dev`` may be the CPU, at smaller sizes, to rehearse the phase (it then
+    fails only on the kernel launch gate)."""
+    import functools
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from cannoles_tpu_torch import bench_chol, bench_large, mgh_battery, perf_profile, scaling
+    from cannoles_tpu_torch.dryrun import dryrun_multichip
+    from cannoles_tpu_torch.ops import block_chol as bc
+
+    t_phase = time.perf_counter()
+    device = None if dev.type == "cuda" else "cpu"  # the entry points' own default is the card
+    out, bad, walls = {}, [], {}
+    pool = ProcessPoolExecutor(len(ENTRY_PROFILE_GROUPS), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        group = functools.partial(perf_profile.run, dtype=torch.float64, device=dev.type, log=None)
+        profile = [pool.submit(group, g) for g in ENTRY_PROFILE_GROUPS]
+
+        t0 = time.perf_counter()
+        dr = dryrun_multichip(ENTRY_DRYRUN_RANKS, device)
+        walls["dryrun"] = time.perf_counter() - t0
+        out["dryrun"] = dict(rows_status=dr["rows"]["status"], solved_2d=dr["2d"]["solved"],
+                             mesh_2d=(dr["2d"]["nb"], dr["2d"]["nr"]), solved_dp=dr["dp"]["solved"])
+        _log(f"  dryrun_multichip({ENTRY_DRYRUN_RANKS}) on {ENTRY_DRYRUN_RANKS} gloo ranks sharing the card: "
+             f"{out['dryrun']}, {walls['dryrun']:.1f} s")
+
+        t0 = time.perf_counter()
+        one = bench_large.run(*large, device=device)
+        sh = bench_large.run_sharded(ENTRY_SHARD, *large, device=device)
+        walls["bench_large"] = time.perf_counter() - t0
+        for r in (one, sh):
+            _log(f"  bench_large: {bench_large._line(r)}")
+        out["bench_large"] = {k: {q: v for q, v in r.items() if q != "x"} for k, r in (("one", one), ("shard", sh))}
+        if one["status"] != "first_order" or not one["err"] <= ENTRY_LARGE_ERR or not sh["err"] <= ENTRY_LARGE_ERR:
+            bad.append("bench_large status or error")
+        if (sh["status"], sh["iter"], sh["nfact"]) != (one["status"], one["iter"], one["nfact"]):
+            bad.append(f"bench_large --shard {ENTRY_SHARD}: {sh['iter']}/{sh['nfact']} against {one['iter']}/"
+                       f"{one['nfact']}")
+
+        t0 = time.perf_counter()
+        rows = scaling.run(scaling_B, ENTRY_SCALING[1], device)
+        walls["scaling"] = time.perf_counter() - t0
+        for r in rows:
+            _log(f"  scaling B={scaling_B} devices={r['devices']} throughput {r['throughput']:.1f}/s "
+                 f"time {r['time']:.4f} s speedup {r['speedup']:.3f} efficiency {r['efficiency']:.3f} [{r['mesh']}]")
+        out["scaling"] = rows
+        kind = "one_card_shared" if device is None else "virtual_cpu_shared_core"
+        if [r["devices"] for r in rows] != [1, 2] or any(r["mesh"] != kind for r in rows):
+            bad.append("scaling rows")
+
+        t0 = time.perf_counter()
+        bc.FUSED_LAUNCHES = bc.BLOCK_LAUNCHES = 0
+        chol = bench_chol.run(chol_sizes or bench_chol.SIZES, dev, log=lambda s: _log(f"  bench_chol {s}"))
+        launches = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+        walls["bench_chol"] = time.perf_counter() - t0
+        out["bench_chol"] = dict(rows=chol, launches=launches)
+        _log(f"  bench_chol launches (fused, block) {launches}")
+        if (launches[0] <= 0 or launches[1] <= 0 or any(not r["ok"] or not r["rel_err"] <= ENTRY_CHOL_REL_ERR
+                                                         for r in chol)):
+            bad.append("bench_chol")
+
+        t0 = time.perf_counter()
+        mrows, msum = mgh_battery.run(constrained=True, linsolve="auto", device=dev.type, log=None)
+        walls["mgh_battery"] = time.perf_counter() - t0
+        _log(f"  mgh_battery --constrained --linsolve auto: {msum}, slowest row "
+             f"{max(mrows, key=lambda r: r['time'])['name']} {max(r['time'] for r in mrows):.2f} s")
+        out["mgh_battery"] = dict(summary=msum, rows=[(r["name"], r["status"], r["iter"]) for r in mrows])
+        if msum["solved"] != 14 or msum["n"] != 14:
+            bad.append("mgh_battery --constrained")
+
+        t0 = time.perf_counter()
+        runs = [f.result() for f in profile]
+        walls["perf_profile_wait"] = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    prows, pbad = _check_profile(runs)
+    bad += pbad
+    for name, r in prows.items():
+        _log(f"  perf_profile {name}: solved {r['solved']} (record {r['record']}), statuses {r['statuses']}, "
+             f"walls {[round(w, 3) for w in r['walls']]} s, neval {r['neval']}")
+    out["perf_profile"] = prows
+    out["walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 22 took {out['wall_s']:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    if bad:
+        raise AssertionError("phase 22: " + "; ".join(bad))
+    return out
+
+
 # Phase 20: matmul_precision on the card.  Every mode, and bench.py's own
 # bf16 commit setting (bench.py:326-329: quality_gate off, default seam).
 PREC_MODES = (None, "highest", "float32", "bfloat16", "tensorfloat32")
@@ -1790,9 +2032,6 @@ def prec_large_rung(dev):
     synchronize before each clock read, and the CUDA-event span), one under
     ``torch.profiler`` (GEMM device time, busy time, top kernels).  Every
     solve ``first_order`` with max |x − x_true| ≤ ``PREC_LARGE_BAR``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cannoles_tpu_torch import CaNNOLeSSolver
     from cannoles_tpu_torch.models.families import large_rung_problem
     from cannoles_tpu_torch.ops import block_chol as bc
@@ -1828,15 +2067,9 @@ def prec_large_rung(dev):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             spans.append(a.elapsed_time(b))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            solve()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not events:
-            raise AssertionError(f"large rung, {label}: torch.profiler recorded no device operation")
-        busy = _busy_s([(e.time_range.start, e.time_range.end) for e in events])
+        _, _, events = _profile_device(solve, f"large rung, {label}")
         by_name = {}
-        for e in events:
+        for e in events or ():
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         launches = bc.FUSED_LAUNCHES - l0
@@ -1844,12 +2077,16 @@ def prec_large_rung(dev):
             raise AssertionError(f"large rung, {label}: {launches} fused Cholesky kernel launches")
         ss = st.solver_specific
         row = dict(status=st.status, iter=st.iter, nfact=ss["nfact"], nlinsolve=ss["nlinsolve"], err=err,
-                   warm_walls_s=walls, event_ms=spans, gemm_ms=_gemm_ms(events), busy_ms=busy * 1e3,
-                   launches=launches, top_kernels_ms={k[:90]: v for k, v in top})
+                   warm_walls_s=walls, event_ms=spans, gemm_ms=None if events is None else _gemm_ms(events),
+                   busy_ms=None if events is None else 1e3 * _busy_s([(e.time_range.start, e.time_range.end)
+                                                                      for e in events]),
+                   launches=launches, top_kernels_ms=None if events is None else {k[:90]: v for k, v in top})
         _log(f"  large rung, {label}: {st.status}, iter {st.iter}, nfact {ss['nfact']}, "
              f"max |x - x_true| {err:.3e}, warm walls {', '.join(f'{w:.4f}' for w in walls)} s, "
-             f"CUDA-event spans {', '.join(f'{t:.3f}' for t in spans)} ms, GEMM {row['gemm_ms']:.3f} ms "
-             f"and busy {row['busy_ms']:.3f} ms of the profiled solve, fused kernel launches {launches}")
+             f"CUDA-event spans {', '.join(f'{t:.3f}' for t in spans)} ms, "
+             + ("GEMM and busy time not measured" if events is None else
+                f"GEMM {row['gemm_ms']:.3f} ms and busy {row['busy_ms']:.3f} ms of the profiled solve")
+             + f", fused kernel launches {launches}")
         for kname, ms in top:
             _log(f"    {ms:.3f} ms  {kname[:100]}")
         out[label] = row
@@ -2039,20 +2276,18 @@ def _force_route(solver, route):
 
 
 def _host_ops(fn):
-    """Device operations that the host launches (CUDA runtime launches,
-    copies and graph launches) and kernels the device runs, in one call of
-    ``fn``, from ``torch.profiler``."""
+    """``fn``'s value, the device operations that the host launches (CUDA
+    runtime launches, copies and graph launches) and the kernels the device
+    runs, in one call of ``fn``, from ``torch.profiler`` (None, None where
+    it does not trace the card)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = prof.events()
+    out, ev, device = _profile_device(fn, "the capped solve")
+    if ev is None:
+        return out, None, None
     launches = sum(1 for e in ev if e.device_type != DeviceType.CUDA
                    and e.name.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset", "cudaGraphLaunch", "cuLaunch")))
-    kernels = sum(1 for e in ev if e.device_type == DeviceType.CUDA)
-    return launches, kernels
+    return out, launches, len(device)
 
 
 def host_path_solve(dev, route, max_iter=-1, profiled=True):
@@ -2081,14 +2316,19 @@ def host_path_solve(dev, route, max_iter=-1, profiled=True):
                replays=s.graph_replays() if hasattr(s, "graph_replays") else {})
     state = s.last_state
     if profiled:
-        h0 = s.host_syncs
-        launches, kernels = _host_ops(lambda: s.solve(**{**kw, "max_iter": HOST_PATH_PROFILED}))
-        n = max(1, s.host_syncs - h0)
-        out.update(launches_per_sync=launches / n, kernels_per_sync=kernels / n)
+
+        def capped():
+            h0 = s.host_syncs
+            s.solve(**{**kw, "max_iter": HOST_PATH_PROFILED})
+            return max(1, s.host_syncs - h0)
+
+        n, launches, kernels = _host_ops(capped)
+        out.update(launches_per_sync=None if launches is None else launches / n,
+                   kernels_per_sync=None if kernels is None else kernels / n)
     _log(f"  {HOST_PATH_ROW} f64 {out['route']}{' capped' if max_iter >= 0 else ''}: {_solve_summary(st)}, "
          f"host checks {out['host_syncs']}, solve {out['solve_s']:.3f} s ({out['ms_per_sync']:.4f} ms per "
          f"check), wall {wall:.3f} s, launches/kernels per check "
-         f"{out.get('launches_per_sync', float('nan')):.1f}/{out.get('kernels_per_sync', float('nan')):.1f}, "
+         f"{out.get('launches_per_sync') or float('nan'):.1f}/{out.get('kernels_per_sync') or float('nan'):.1f}, "
          f"graphs {out['graphs']}")
     return out, state
 
@@ -2421,6 +2661,8 @@ def main() -> int:
         _stop(examples)
     _phase("phase 19: the multi-device layer, k gloo ranks sharing the card")
     sharded = phase_sharded(dev)
+    _phase("phase 22: the entry points (dryrun, bench_large, scaling, bench_chol, perf_profile, mgh_battery)")
+    entries = phase_entry_points(dev)
 
     head_t, ba_t, rescue_t = (times[f"N={N} B={B}"] for N, B in ((5, 16384), (73, 256), rescue))
     _log(smi)
@@ -2467,6 +2709,9 @@ def main() -> int:
         "launches_config4_per_rank": sharded["launches_cfg4_per_rank"],
         # phase 20: the large rung under 'bfloat16' at the kernel seam
         "launches_precision": prec_launches["chol_fused"],
+        # phase 22: bench_chol's rows at N = 256, 512, 1024 (f32, nb = 128)
+        "launches_bench_chol": entries["bench_chol"]["launches"][0],
+        "bench_chol": [_chol_row(r) for r in entries["bench_chol"]["rows"] if r["route"] == "fused"],
     }, {
         "name": "chol_block",
         "route": "cuda",
@@ -2482,10 +2727,14 @@ def main() -> int:
         "shape": "f64 nb=256 B=1 (one block)",
         "blocked_route": times7["blocked"],
         "blocked_route_shape": "f64 N=1024 nb=256 B=1 (factor: the block kernel + torch.matmul)",
+        # phase 22: bench_chol's rows at N = 2048, 4096 (f32, nb = 128, blocked route)
+        "launches_bench_chol": entries["bench_chol"]["launches"][1],
+        "bench_chol": [_chol_row(r) for r in entries["bench_chol"]["rows"] if r["route"] == "blocked"],
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},
-        "matmul_precision": prec, "host_path": host_path}))
+        "matmul_precision": prec, "host_path": host_path,
+        "entry_points": {k: v for k, v in entries.items() if k not in ("bench_chol", "perf_profile")}}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -626,3 +626,44 @@ def test_mesh_and_cpp_take_the_eager_route_on_card(cuda):
     assert c.solve(max_time=600.0, max_iter=3).iter >= 1 and c.graph_replays() == {}
     g = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed")
     assert (g.route, g.route_reason) == ("graph", "cuda")
+
+
+@pytest.mark.parametrize("N", [256, 2048])
+def test_bench_chol_rows_on_card(cuda, N):
+    """``bench_chol``'s rows at N = 256 (the fused kernel) and 2,048 (the
+    blocked route, the block kernel once per diagonal block): the factor
+    against the plain version (phase 7's 1e-4 for float32), the solve
+    against ``torch.cholesky_solve`` (``rel_err`` ≤ 1e-4), the kernels'
+    counters and CUDA-event times beside ``torch.linalg.cholesky``'s."""
+    from cannoles_tpu_torch import bench_chol
+
+    row = bench_chol.row(N, cuda, plain=False)
+    fused = N * N * 4 <= 1280 * 1280 * 4
+    assert row["ok"] and row["rel_err"] <= 1e-4
+    assert (row["launches_fused"], row["launches_block"]) == ((1, 0) if fused else (0, N // bench_chol.NB))
+    assert row["kernel_ms"] > 0 and row["cholesky_ms"] > 0 and 0 < row["share_of_bound"] <= 1
+    A, _ = bench_chol._inputs(N, cuda)
+    fac = tchol.block_cholesky(A[None], bench_chol.TOL, bench_chol.NB)
+    ref = tchol.block_cholesky_reference(A[None], bench_chol.TOL, bench_chol.NB)
+    assert float((fac.L - ref.L).abs().max()) <= 1e-4 * float(ref.L.abs().max())
+    assert float((fac.L - torch.linalg.cholesky(A)[None]).abs().max()) <= 1e-4 * float(ref.L.abs().max())
+
+
+def test_mesh2d_on_card_matches_one_process(cuda):
+    """The 2-D mesh at 2 × 2 gloo ranks sharing the card (float64): each
+    case of ``torch_ranks.MESH2D_CASES`` against the one-process solve on
+    the card, status and counters equal, x within 1e-10, every rank the
+    same bits, uneven B and m refused."""
+    import torch_ranks
+    from cannoles_tpu_torch.parallel.launch import launch
+
+    got = launch(torch_ranks.mesh2d_cases, 4, 2, 2, None)
+    for case in torch_ranks.MESH2D_CASES:
+        one = torch_ranks.mesh2d_solve(None, case, device=cuda)
+        for r in got:
+            for k in ("status", "iter", "nfact", "nlinsolve"):
+                assert np.array_equal(r[case][k], one[k]), (case, k)
+            assert np.abs(r[case]["x"] - one["x"]).max() <= 1e-10, case
+            assert np.array_equal(r[case]["x"], got[0][case]["x"]), case
+    assert all("should be divisible by 2" in r["uneven_B"] and "should be divisible by 2" in r["uneven_m"]
+               for r in got)

@@ -1,6 +1,6 @@
 """Rank programs of the port's distributed tests (``test_torch_schur.py``,
 ``test_torch_multihost.py``, ``test_torch_matfree_solver.py``,
-``test_torch_gpu.py``).
+``test_torch_mesh2d.py``, ``test_torch_gpu.py``).
 
 ``cannoles_tpu_torch.parallel.launch`` runs each of these functions in k
 spawned ranks, which import this module by name; it imports torch and numpy
@@ -20,7 +20,7 @@ import torch.distributed as dist
 import cannoles_tpu_torch as tc
 from cannoles_tpu_torch.core.solver import TENSOR_FIELDS
 from cannoles_tpu_torch.models.families import bundle_adjustment
-from cannoles_tpu_torch.parallel.mesh import make_batch_mesh, make_row_mesh
+from cannoles_tpu_torch.parallel.mesh import make_batch_mesh, make_mesh_2d, make_row_mesh
 from cannoles_tpu_torch.parallel.multihost import (
     batch_convergence_stats,
     global_batch_mesh,
@@ -52,6 +52,15 @@ def linear_rows_data(m: int = 4_096, n: int = 8, seed: int = 2):
     A = rng.normal(size=(m, n)) / np.sqrt(n)
     x_true = rng.normal(size=n)
     return A, A @ x_true, x_true
+
+
+def exp_fit_batch(B: int = 4, m: int = 32, seed: int = 0):
+    """The 2-D mesh's batch (the dry run's axis 3): B exp fits y = a e^(-1.1 t)
+    on m rows, a ~ U(1.5, 2)."""
+    rng = np.random.default_rng(seed)
+    t = np.tile(np.linspace(0.0, 1.0, m), (B, 1))
+    amps = 1.5 + 0.5 * rng.random(B)
+    return t, amps[:, None] * np.exp(-1.1 * t)
 
 
 def family_batch(B: int = 16, seed: int = 1):
@@ -95,6 +104,66 @@ def centered_problem(m: int, device="cpu"):
     data = {"t": torch.as_tensor(t, device=device), "y": torch.as_tensor(y, device=device)}
     return tc.nls_problem(lambda x, d: x[0] * torch.exp(-x[1] * d["t"]) + x[2] - (d["y"] - d["y"].mean()),
                           [1.0, 0.0, 0.0], m, data=data, name="centered", device=device)
+
+
+def exp_fit_problem(m: int, kind: str = "fit", device="cpu"):
+    """The exp fit of ``exp_fit_batch`` (its lane 0's data as the problem's
+    own).  ``"centered"`` fits y − mean(y) with an offset, a residual whose
+    row i reads every row of y; ``"constrained"`` adds x0 + x1 = mean(y), a
+    constraint that reads every row of its lane's y."""
+    t, y = exp_fit_batch(m=m)
+    data = {"t": torch.as_tensor(t[0], device=device), "y": torch.as_tensor(y[0], device=device)}
+    if kind == "centered":
+        return tc.nls_problem(lambda x, d: x[0] * torch.exp(-x[1] * d["t"]) + x[2] - (d["y"] - d["y"].mean()),
+                              [1.0, 0.0, 0.0], m, data=data, name="centered_2d", device=device)
+    cons = (lambda x, d: torch.stack([x[0] + x[1] - d["y"].mean()])) if kind == "constrained" else None
+    return tc.nls_problem(lambda x, d: x[0] * torch.exp(-x[1] * d["t"]) - d["y"], [1.0, 0.0], m, cons,
+                          *([[0.0], [0.0]] if cons else []), data=data, name=f"exp_{kind}_2d", device=device)
+
+
+# the centered fit runs on 4,096 rows to its small-residual stop, as in
+# ``schur_cases`` (on 32 rows the order of the row sums moves its stop by
+# an iteration in some lanes)
+MESH2D_CASES = {  # name -> (problem kind, rows, vsolve keywords)
+    "fit": ("fit", 32, dict(max_iter=20)),
+    "centered": ("centered", 4096, dict(max_iter=20, **CENTERED_TOL)),
+    "constrained": ("constrained", 32, dict(max_iter=50)),
+    "rescued": ("fit", 32, dict(max_iter=2, rescue=True)),
+}
+
+
+def mesh2d_solve(mesh, case: str, B: int = 4, m=None, device="cpu"):
+    """One case of ``MESH2D_CASES`` through ``vsolve`` (Gauss–Newton, chol,
+    condensed) on ``mesh`` (a 2-D mesh, or None for the one-process solve):
+    the whole result's fields as numpy.  The one-process solve runs on the
+    eager route: on the card's graph route ``linsolve="chol"`` at B > 1
+    cannot be captured (MAGMA's batched ``cholesky_solve`` allocates;
+    ROADMAP queue 3), and a mesh's solver is eager anyway."""
+    kind, rows, kw = MESH2D_CASES[case]
+    m = rows if m is None else m
+    pb = exp_fit_problem(m, kind, device)
+    t, y = exp_fit_batch(B, m)
+    x0 = np.tile(pb.x0.cpu().numpy(), (B, 1))  # lam0: the problem's y0 on every lane
+    solver = tc.CaNNOLeSSolver(pb, method="gauss_newton", linsolve="chol", kkt="condensed",
+                               mesh=None if mesh is None else mesh.rows)
+    solver.route = "eager"
+    res = tc.vsolve(pb, x0, data_batch={"t": t, "y": y}, solver=solver, mesh=mesh, **kw)
+    return {f: getattr(res.states, f).cpu().numpy() for f in ("x", "status", "iter", "nfact", "nlinsolve")}
+
+
+def mesh2d_cases(nb: int = 2, nr: int = 4, device="cpu"):
+    """Every case of ``MESH2D_CASES`` on an nb × nr mesh, and the refusals
+    of uneven B and m (their messages, None where nothing was raised)."""
+    mesh = make_mesh_2d(nb, nr, device=device)
+    out = {case: mesh2d_solve(mesh, case, device=device) for case in MESH2D_CASES}
+    out["coords"] = (mesh.batch.rank, mesh.rows.rank, mesh.shape)
+    for key, (B, m) in (("uneven_B", (3, 32)), ("uneven_m", (4, 31))):
+        try:
+            mesh2d_solve(mesh, "fit", B, m, device)
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
 
 
 def family_problem(device="cpu"):
