@@ -55,6 +55,10 @@ class Bank:
         self._label = label
         self._pool = pool if pool is not None else [None]
         self._graphs: dict = {}
+        # the buffers of a run's data by id, which no segment writes: every
+        # entry that carries them (the data, each state's ``data``) keeps
+        # these one buffers (held here, so that no id is reused)
+        self._shared: dict = {}
 
     def replays(self) -> dict:
         """Replays per captured segment since the bank was made."""
@@ -73,25 +77,44 @@ def _leaves(v):
     return []
 
 
-def clone_tree(v):
-    """A copy of a pytree of tensors (NamedTuple, tuple, list, dict)."""
+def clone_tree(v, keep=frozenset()):
+    """A copy of a pytree of tensors (NamedTuple, tuple, list, dict); the
+    tensors whose ids are in ``keep`` are not copied."""
     if isinstance(v, torch.Tensor):
-        return v.clone()
+        return v if id(v) in keep else v.clone()
     if isinstance(v, dict):
-        return {k: clone_tree(x) for k, x in v.items()}
+        return {k: clone_tree(x, keep) for k, x in v.items()}
     if isinstance(v, tuple) and hasattr(v, "_fields"):
-        return type(v)(*[clone_tree(x) for x in v])
+        return type(v)(*[clone_tree(x, keep) for x in v])
     if isinstance(v, (list, tuple)):
-        return type(v)(clone_tree(x) for x in v)
+        return type(v)(clone_tree(x, keep) for x in v)
     return v
 
 
-def _store(bank: Bank, upd: dict, capturing: bool = False):
+def _data_leaves(k, v):
+    """The data leaves of a bank entry: the whole entry ``data``, or the
+    field ``data`` of a NamedTuple entry (a state)."""
+    if k == "data":
+        return _leaves(v)
+    if isinstance(v, tuple) and "data" in getattr(v, "_fields", ()):
+        return _leaves(v.data)
+    return []
+
+
+def _same_memory(a, b):
+    return (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
+def _store(bank: Bank, upd: dict, capturing: bool = False, adopt=()):
     """Copy ``upd`` into the bank's buffers; an entry seen for the first
     time gets buffers of its own (never inside a capture: the buffers must
-    outlive the graph's temporaries).  A source that shares storage with a
-    buffer written here is copied first, so that every entry gets the value
-    the segment computed, whatever the order of the copies."""
+    outlive the graph's temporaries), but for its data leaves that are
+    already the bank's (one buffer per data leaf, whatever entries carry
+    it), and an entry named in ``adopt`` is taken by reference: its tensors
+    become the buffers.  A source that shares storage with a buffer written
+    here is copied first, so that every entry gets the value the segment
+    computed, whatever the order of the copies."""
     pairs = []
     for k, v in upd.items():
         cur = bank.__dict__.get(k)
@@ -100,20 +123,24 @@ def _store(bank: Bank, upd: dict, capturing: bool = False):
         if cur is None or len(old) != len(new) or any(a.shape != b.shape for a, b in zip(old, new)):
             if capturing:
                 raise RuntimeError(f"entry {k!r} has no buffer of its shape from the segment's eager run")
-            bank.__dict__[k] = clone_tree(v)
+            bank.__dict__[k] = v if k in adopt else clone_tree(v, bank._shared)
+            bank._shared.update((id(x), x) for x in _data_leaves(k, bank.__dict__[k]))
             continue
-        pairs += [(d, s) for d, s in zip(old, new) if d is not s]
+        pairs += [(d, s) for d, s in zip(old, new) if d is not s and not _same_memory(d, s)]
     written = {d.untyped_storage().data_ptr() for d, _ in pairs}
     pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in written else s) for d, s in pairs]
     for d, s in pairs:
         d.copy_(s)
 
 
-def load(bank: Bank, **entries):
+def load(bank: Bank, adopt=(), **entries):
     """Put a run's inputs into the bank (copied into its buffers on the
-    graph route)."""
+    graph route).  An entry named in ``adopt`` that the bank does not hold
+    yet is taken by reference, not copied: an input that the caller keeps
+    unchanged for the bank's life (a problem's own data), which the graphs
+    then read where it lies."""
     if bank._graphed:
-        _store(bank, entries)
+        _store(bank, entries, adopt=adopt)
     else:
         bank.__dict__.update(entries)
 

@@ -74,7 +74,7 @@ from ..params import F_BLOWUP, MAX_DLAMBDA, SMAX, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_1, norm_2, norm_inf
 from ..utils.precision import check_mode, critical_matmul, gate_eps, matmul_mode, scoped
-from .segments import Bank, clone_tree, counters, load, restore_counters, run_segment
+from .segments import Bank, _leaves, clone_tree, counters, load, restore_counters, run_segment
 from .status import MSG, ExecutionStats, Status, get_status_code, status_name
 
 __all__ = [
@@ -217,8 +217,19 @@ def _cholesky_nan(A):
 
 
 def _cho_solve(L, b):
-    """Solve (L Lᵀ) x = b for a batch of vectors b (B, k)."""
-    return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    """Solve (L Lᵀ) x = b for a batch of vectors b (B, k).  At B > 1 by two
+    triangular solves, L y = b then Lᵀ x = y (``jax.scipy.linalg.cho_solve``'s
+    structure; cuBLAS's trsm on a card, which a CUDA graph captures, where a
+    batched ``torch.cholesky_solve`` goes to MAGMA and allocates inside the
+    capture).  At B = 1 ``torch.cholesky_solve``: cuSOLVER's ``potrs`` on a
+    card, which the capture takes, and whose rounding is closer to the
+    CPU's (the float64 card-vs-CPU bars of the row-sharded fit hold with it
+    and not with trsm).  On the CPU both are LAPACK's ``potrs``, the same
+    bits."""
+    if L.shape[0] == 1:
+        return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    y = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True).squeeze(-1)
 
 
 class _Hat(NamedTuple):
@@ -912,7 +923,7 @@ class CaNNOLeSSolver:
         load(t, x0=x0.to(dtype=self.dtype, device=self.device),
              lam0=lam0.to(dtype=self.dtype, device=self.device), cfg=cfg, data=data)
         self._init(t)
-        return self._result(t)
+        return self._result(t.s, data)
 
     # ------------------------------------------------------------------
     # one outer iteration on the lanes of ``t.nxt``
@@ -1247,19 +1258,24 @@ class CaNNOLeSSolver:
         t = self._bank(s.x.shape[0], s.data)
         load(t, s=s, cfg=cfg, nxt=active)
         self._outer(t)
-        return self._result(t)
+        return self._result(t.s, s.data)
 
     # ------------------------------------------------------------------
     # routes, banks and host checks
     # ------------------------------------------------------------------
-    def _bank(self, B: int, data) -> Bank:
+    def _bank(self, B: int, data, own: bool = False) -> Bank:
         """The bank of a batch of B lanes with this data layout: on the
         graph route one per (B, data shapes), kept with its graphs (the
         ``MAX_BANKS`` most recently used: a rescue's B changes from call to
-        call); a fresh one per call on the eager route."""
+        call); a fresh one per call on the eager route.  ``own``: the data
+        is the problem's own (``solve()``), which the bank adopts (no copy;
+        its graphs read it in place), so its bank is also keyed by where
+        the data lies."""
         if self.route == "eager":
             return Bank("eager", self.problem.name)
         key = (B, _layout(data))
+        if own and data is not None:
+            key += (tuple(x.data_ptr() for x in _leaves(data)),)
         bank = self._banks.get(key)
         if bank is None:
             bank = self._banks[key] = Bank(self.route, f"problem {self.problem.name!r} (B={B}, {self.dtype})",
@@ -1269,10 +1285,13 @@ class CaNNOLeSSolver:
         self._banks.move_to_end(key)
         return bank
 
-    def _result(self, t) -> SolverState:
-        """The bank's state, copied on the graph route (its buffers are
-        rewritten by the next run)."""
-        return clone_tree(t.s) if t._graphed else t.s
+    def _result(self, s: SolverState, data) -> SolverState:
+        """A bank's state ``s`` handed out: on the graph route a copy (the
+        buffers are rewritten by the next run) that carries the caller's
+        ``data``, which no segment changes, instead of a copy of it."""
+        if self.route == "eager":
+            return s
+        return clone_tree(s._replace(data=None))._replace(data=data)
 
     def _check(self, flags) -> list:
         """A host check: read a segment's flags (one sync, counted in
@@ -1309,7 +1328,7 @@ class CaNNOLeSSolver:
         more = self._init(t)
         while more:
             more = self._outer(t)
-        return self._result(t)
+        return self._result(t.s, data)
 
     # ------------------------------------------------------------------
     # host-driven solve (callbacks, wall-clock limit, logging)
@@ -1387,11 +1406,14 @@ class CaNNOLeSSolver:
             lam0 = pb.y0 if lam0 is None else lam0
             x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device).reshape(1, -1)
             lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
+        # the problem's own data, which the graph route's bank adopts
+        own = resume_from is None and _views_of(data, pb.data)
         if not self._warm:
             start = resume_from if resume_from is not None else (x0, lam0, data)
-            self._warm_up(start, numeric)
+            self._warm_up(start, numeric, own)
         t0 = time.time()
-        t = self._bank(1, data if resume_from is None else resume_from.data)
+        given = data if resume_from is None else resume_from.data
+        t = self._bank(1, given, own=own)
 
         if resume_from is not None:
             state = resume_from._replace(status=torch.zeros_like(resume_from.status))
@@ -1401,13 +1423,13 @@ class CaNNOLeSSolver:
                 state = state._replace(epstol=epstol, epsF=epsF, epsc=torch.sqrt(epstol))
             load(t, s=state, cfg=cfg, nxt=state.status == Status.UNKNOWN)
         else:
-            load(t, x0=x0, lam0=lam0, cfg=cfg, data=data)
+            load(t, x0=x0, lam0=lam0, cfg=cfg, data=data, adopt=("data",) if own else ())
             self._init(t)
         state = t.s
         self._sync_stats(state, stats, time.time() - t0)
         if verbose > 0:
             self._log_header()
-        seen = clone_tree(state) if t._graphed and callback is not None else state
+        seen = self._result(state, given) if callback is not None else state
         self._between_steps(seen, stats, callback, verbose > 0, False)
         done = stats.status != "unknown"
 
@@ -1426,21 +1448,21 @@ class CaNNOLeSSolver:
                 self._sync_stats(state, stats, elapsed)
                 log = verbose > 0 and stats.iter % verbose == 0
                 # a callback may keep the state: on the graph route it gets a copy
-                seen = clone_tree(state) if t._graphed and callback is not None else state
+                seen = self._result(state, given) if callback is not None else state
                 self._between_steps(seen, stats, callback, log, elapsed > max_time)
                 done = stats.status != "unknown"
                 self._deadline = t0 + max_time
         finally:
             self._deadline = None
 
-        state = clone_tree(state) if t._graphed else state
+        state = self._result(state, given)
         self._finalize_stats(state, stats)
         self.last_state = state
         pb.counters.neval_residual += int(state.neval_F[0])
         pb.counters.neval_cons += int(state.neval_c[0])
         return stats
 
-    def _warm_up(self, start, numeric):
+    def _warm_up(self, start, numeric, own=False):
         """The one-time costs of a solver, paid before ``solve()`` starts its
         clock (the counterpart of the JAX package's ``_outer_warm``): init
         and one outer step of at most two inner iterations from ``start``
@@ -1456,8 +1478,8 @@ class CaNNOLeSSolver:
                 load(t, s=start, cfg=cfg)
             else:
                 x0, lam0, data = start
-                t = self._bank(1, data)
-                load(t, x0=x0, lam0=lam0, cfg=cfg, data=data)
+                t = self._bank(1, data, own=own)
+                load(t, x0=x0, lam0=lam0, cfg=cfg, data=data, adopt=("data",) if own else ())
                 self._init(t)
             load(t, nxt=torch.ones_like(t.s.broken))
             self._outer(t)
@@ -1523,6 +1545,19 @@ class CaNNOLeSSolver:
             f"{float(s.eta[0]):9.2e}  {float(s.rho[0]):9.2e}  {float(s.delta[0]):9.2e}  "
             f"{int(s.inner_iter[0]):9d}  {int(s.nbk[0]):9d}"
         )
+
+
+def _views_of(a, b) -> bool:
+    """Whether every leaf of the pytree ``a`` is a tensor that lies in the
+    storage of the matching tensor leaf of ``b`` (``_add_batch_axis`` made
+    no copy)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_views_of(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(_views_of(x, y) for x, y in zip(a, b))
+    return a is None and b is None
 
 
 def _add_batch_axis(tree, device):

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-import warnings
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -35,12 +34,12 @@ __all__ = ["NLSProblem", "nls_problem", "default_device", "Counters", "TRACE_CAL
 # the call of a B = 1 derivative evaluator on the CPU (a ``torch.func``
 # transform of the residual or the constraints), with one input layout, at
 # which it is traced (``_Trace``): recording one costs as much as a median of
-# 56 of its eager calls over the battery's problems (``host_timings --what
+# 48 of its eager calls over the battery's problems (``host_timings --what
 # trace``), so a solve that calls it more often pays at most about twice the
 # least it could, and a short one never records.  Values (``F``, ``c``) and
 # the user's own derivatives are not traced: a trace of plain operations
 # gains nothing
-TRACE_CALLS = 56
+TRACE_CALLS = 48
 # the evaluators built from transforms (``_apply``'s keys)
 _TRACED = frozenset({"Jfwd", "FJfwd", "Jcfwd", "Hres_ad", "Hcon_ad"})
 
@@ -352,11 +351,14 @@ def _weighted_hessian(fn):
 
 class _Trace:
     """A one-instance callable recorded as aten operations (``make_fx``,
-    below ``torch.func``'s transforms) and replayed by TorchScript with the
-    graph executor's optimizations off (its peephole pass would drop an
-    ``x + 0``): the same operations in the same order, so the same bits,
-    without the transforms' Python (forward-mode AD runs Python reference
-    decompositions).  A callable that reads a value on the host cannot be
+    below ``torch.func``'s transforms) and replayed by the recorded
+    ``GraphModule``'s generated code, without the transforms' Python
+    (forward-mode AD runs Python reference decompositions).  Before the
+    replay the graph drops what computes no output: the operations whose
+    results nothing reads (the decompositions' shape checks on meta
+    tensors) and ``alias`` (a view that its uses read as its input).  What
+    is left are the same arithmetic operations in the same order, so the
+    same bits.  A callable that reads a value on the host cannot be
     recorded (``make_fx`` raises)."""
 
     def __init__(self, one, args):
@@ -376,15 +378,18 @@ class _Trace:
             single.append(not isinstance(out, tuple))
             return (out,) if single[-1] else tuple(out)
 
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            gm = make_fx(flat)(*example)
-            self.fn = torch.jit.trace(gm, tuple(example), check_trace=False)
+        gm = make_fx(flat)(*example)
+        for node in list(gm.graph.nodes):
+            if node.target is torch.ops.aten.alias.default:
+                node.replace_all_uses_with(node.args[0])
+                gm.graph.erase_node(node)
+        gm.graph.eliminate_dead_code()
+        gm.recompile()
+        self.fn = gm.forward
         self.single = single[-1]
 
     def __call__(self, leaves):
-        with torch.jit.optimized_execution(False):
-            out = self.fn(*leaves)
+        out = self.fn(*leaves)
         return out[0] if self.single else tuple(out)
 
 

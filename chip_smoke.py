@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (cannoles_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --against DIR    # phases 3, 4, 7 and 21's times, DIR's package, then this
+    python3 chip_smoke.py --against DIR    # phases 3, 4, 7, 21's times and 23, DIR's package, then this
 
 Phases, in order; a failed phase raises and the script exits nonzero:
 
@@ -86,8 +86,23 @@ also before the pool, whose workers would share the host it measures:
    operations the host launches per check and kernels per check
    (``torch.profiler``, ``HOST_PATH_PROFILED`` outer iterations), walls
    (the headline's rung and rescue apart), the graphs captured and their
-   replays per segment; the LDLᵀ kernel's counter, set to 0 before the
-   phase, must rise.
+   replays per segment; then the exp-fit batch of the 2-D mesh's tests
+   (B = 4, m = 32, Gauss–Newton, condensed, ``linsolve="chol"``) in float32
+   and float64, at the default seam and through the Cholesky kernel
+   (``pallas_chol_min=0``), on both routes: captured and replayed, states
+   equal bit for bit, kernel launches equal, statuses the CPU run's, every
+   lane ``first_order``.  The LDLᵀ kernel's and the fused Cholesky
+   kernel's counters, set to 0 before the phase, must rise.
+
+Phase 23 (the routes' peak device memory) runs after phase 21, before the
+pool:
+
+23. ``large_rung_problem(m, 1024)`` (float32, Gauss–Newton, condensed,
+   ``chol``) at each m of ``MEMORY_ROWS`` (J of 33.5 MB, 268 MB and
+   1.07 GB), three solves on one solver per route: every solve
+   ``first_order``; the peak allocated and reserved memory of each route;
+   the graph route's peak allocated at most ``MEMORY_RATIO_BAR`` times the
+   eager route's.
 
 Phases 11 and 12 share one pool of worker processes (``battery.solve_index``,
 four processes) that solves the battery's 90 problems in three
@@ -204,7 +219,8 @@ fused kernel must run in phases 8-9 and the block kernel in phase 10.  The
 LDLᵀ and fused Cholesky counters are set to 0 again before phase 20 and
 read after its two rungs: the BA rung must launch the one in every run,
 the large rung's kernel seam the other.  The LDLᵀ counter is set to 0
-again before phase 21 and read after it: the headline must launch it.  On
+again before phase 21, with the fused Cholesky counter, and read after it:
+the headline must launch the one and the chol batch the other.  On
 the graph route a kernel launched inside a captured segment counts once per
 replay (``core/segments.py``).  The Cholesky counters are set to 0 again
 before phase 22's ``bench_chol`` and read after it: both must rise.  The
@@ -217,7 +233,8 @@ rescue's, and its host time per call), then phase 21's two workloads capped
 so that a package without the graph route fits (``biggs_exp6_24`` at
 ``HOST_PATH_CAP`` outer iterations on the package's default route, the
 headline with its rescue), then the peak device memory of the large rung
-and of repeated ``vsolve`` calls whose rescues differ in size, for the
+and of repeated ``vsolve`` calls whose rescues differ in size, and phase
+23's ladder of both routes (without its bar), for the
 ``cannoles_tpu_torch`` under DIR (for example a ``git archive`` of another
 commit) and for this one, each in a fresh process, DIR first, and prints
 one JSON line for each.
@@ -2387,6 +2404,71 @@ def _all_syncs(solver):
     return solver.host_syncs + sum(s.host_syncs for s in solver.__dict__.get("_rescue_siblings", {}).values())
 
 
+# phase 21's chol case: the exp-fit batch of the 2-D mesh's tests
+# (``tests/torch_ranks.py`` ``exp_fit_batch``), B = 4, m = 32
+HOST_PATH_CHOL = (4, 32)
+
+
+def _exp_fit_batch(B, m, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.tile(np.linspace(0.0, 1.0, m), (B, 1))
+    return t, (1.5 + 0.5 * rng.random(B))[:, None] * np.exp(-1.1 * t)
+
+
+def host_path_chol(dev, dtype, route, pallas_chol_min=None):
+    """The exp-fit batch through ``vsolve`` (Gauss–Newton, condensed,
+    ``linsolve="chol"``) on ``route``: the solver and the states."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, nls_problem, vsolve
+
+    B, m = HOST_PATH_CHOL
+    t, y = _exp_fit_batch(B, m)
+    own = {"t": torch.as_tensor(t[0], dtype=dtype, device=dev), "y": torch.as_tensor(y[0], dtype=dtype, device=dev)}
+    pb = nls_problem(lambda x, d: x[0] * torch.exp(-x[1] * d["t"]) - d["y"], [1.0, 0.0], m, data=own,
+                     name="exp_fit", dtype=dtype, device=dev)
+    s = _force_route(CaNNOLeSSolver(pb, method="gauss_newton", linsolve="chol", kkt="condensed",
+                                    pallas_chol_min=pallas_chol_min), route)
+    x0 = np.tile(pb.x0.cpu().numpy(), (B, 1))
+    return s, vsolve(pb, x0, data_batch={"t": t, "y": y}, solver=s, max_iter=20).states
+
+
+def phase_host_path_chol(dev):
+    """Phase 21's chol case: the exp-fit batch at B = 4 in float32 and
+    float64, at the default seam and through the Cholesky kernels
+    (``pallas_chol_min=0``: the n = 2 block padded to 128), on both routes:
+    the graph route captures and replays it, states equal bit for bit,
+    statuses equal the CPU run's, every lane ``first_order``."""
+    from cannoles_tpu_torch.ops import block_chol as bc
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for pcm in (None, 0):
+            runs = {}
+            for route in ("graph", "eager"):
+                f0 = bc.FUSED_LAUNCHES
+                s, st = host_path_chol(dev, dtype, route, pcm)
+                torch.cuda.synchronize()
+                runs[route] = (s, st, bc.FUSED_LAUNCHES - f0)
+            (g, a, la), (_, b, lb) = runs["graph"], runs["eager"]
+            _, c = host_path_chol(torch.device("cpu"), dtype, "eager", pcm)
+            key = f"{str(dtype)[6:]} {'kernels' if pcm == 0 else 'cholesky'}"
+            bad = _bits_differ(a, b)
+            row = dict(route=g.route, replays=sum(g.graph_replays().values()), status=a.status.tolist(),
+                       iter=a.iter.tolist(), cpu_status=c.status.tolist(), launches=(la, lb))
+            _log(f"  chol B={HOST_PATH_CHOL[0]} {key}: {row}")
+            if g.route != "graph" or not g.graph_replays().get("solve0") or bad:
+                raise AssertionError(f"phase 21: chol {key}: graph route {g.route}, replays "
+                                     f"{g.graph_replays()}, fields differing from the eager route {bad}")
+            if a.status.tolist() != c.status.tolist() or set(c.status.tolist()) != {1}:
+                raise AssertionError(f"phase 21: chol {key}: statuses {row['status']} against the CPU's "
+                                     f"{row['cpu_status']}")
+            if la != lb or (la > 0) != (pcm == 0):
+                raise AssertionError(f"phase 21: chol {key}: Cholesky kernel launches {la} (graph) and {lb} "
+                                     "(eager)")
+            out[key] = row
+    _log("  chol: the exp-fit batch bit-equal on both routes in both dtypes, statuses the CPU's")
+    return out
+
+
 def phase_host_path(dev):
     """Phase 21: ``biggs_exp6_24`` float64 uniform and the headline's
     rescue through the graph route and the eager route: bit-equal states;
@@ -2417,7 +2499,8 @@ def phase_host_path(dev):
     if bad:
         raise AssertionError(f"phase 21: headline graph vs eager route differ in {bad}")
     _log("  headline: graph and eager routes bit-equal, rescue included")
-    out = dict(full=full, capped=capped, headline=head,
+    chol = phase_host_path_chol(dev)
+    out = dict(full=full, capped=capped, headline=head, chol=chol,
                capture_s=segments.CAPTURE_SECONDS[0] - cap0, wall_s=time.perf_counter() - t21)
     _log(f"  phase 21 took {out['wall_s']:.1f} s (graph captures {out['capture_s']:.2f} s)")
     return out
@@ -2481,6 +2564,61 @@ def peak_memory(dev, draws=4):
     return out
 
 
+# phase 23: the large rung's problem at these m (n = 1024, float32; J is
+# 33.5 MB, 268 MB and 1.07 GB), and the most that the graph route's peak
+# allocated memory may exceed the eager route's (ROADMAP queue 3 C1: 1.85x
+# at m = 8,192 on an H100 80GB HBM3 at 700 W before the bank shared its data)
+MEMORY_ROWS = (8192, 65536, 262144)
+MEMORY_RATIO_BAR = 1.25
+
+
+def phase_memory(dev, sizes=MEMORY_ROWS, n=1024, bar=MEMORY_RATIO_BAR):
+    """Phase 23: the peak device memory of both routes (allocated and
+    reserved by the caching allocator, whose reserve holds the graph pool)
+    over three solves of ``large_rung_problem(m, n)`` on one solver
+    (float32, Gauss–Newton, condensed, ``chol``), at each m of ``sizes``;
+    every solve ``first_order``, the graph route's peak allocated at most
+    ``bar`` times the eager route's (no bar: ``--measure`` reads another
+    package)."""
+    import gc
+
+    from cannoles_tpu_torch import CaNNOLeSSolver
+    from cannoles_tpu_torch.models.families import large_rung_problem
+
+    t23 = time.perf_counter()
+    out = {}
+    for m in sizes:
+        pb, _, _ = large_rung_problem(m, n, dtype=torch.float32, device=dev)
+        row = dict(jacobian_gb=m * n * 4 / 1e9)
+        for route in ("eager", "graph"):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            s = _force_route(CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol",
+                                            block_size=256, dtype=torch.float32, device=dev), route)
+            sts = [s.solve(max_iter=30, max_time=600.0).status for _ in range(3)]
+            torch.cuda.synchronize()
+            if sts != ["first_order"] * 3 or s.route != route:
+                raise AssertionError(f"phase 23: m={m} on the {route} route ({s.route}): {sts}")
+            row[route] = dict(peak_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                              peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9)
+            del s
+        row["ratio_allocated"] = row["graph"]["peak_allocated_gb"] / row["eager"]["peak_allocated_gb"]
+        _log(f"  m={m} (J {row['jacobian_gb']:.3f} GB): peak allocated / reserved GB eager "
+             f"{row['eager']['peak_allocated_gb']:.4f} / {row['eager']['peak_reserved_gb']:.4f}, graph "
+             f"{row['graph']['peak_allocated_gb']:.4f} / {row['graph']['peak_reserved_gb']:.4f}, "
+             f"ratio {row['ratio_allocated']:.3f}")
+        if bar is not None and row["ratio_allocated"] > bar:
+            raise AssertionError(f"phase 23: m={m}: the graph route's peak allocated memory is "
+                                 f"{row['ratio_allocated']:.3f} times the eager route's")
+        out[str(m)] = row
+        del pb
+    out["wall_s"] = time.perf_counter() - t23
+    _log(f"  phase 23 took {out['wall_s']:.1f} s")
+    return out
+
+
 def _stop(runs):
     for p, f in runs.values():
         if p.poll() is None:
@@ -2494,8 +2632,8 @@ def measure(root: str) -> int:
     21's two workloads capped (``biggs_exp6_24`` f64 at ``HOST_PATH_CAP``
     outer iterations on the package's default route, with the device
     operations per host check; the headline with its rescue, two reps),
-    then ``peak_memory``, nothing else, for the package under ``root``;
-    prints one JSON line."""
+    then ``peak_memory`` and phase 23's ladder (no bar), nothing else, for
+    the package under ``root``; prints one JSON line."""
     sys.path.insert(0, root)
     from cannoles_tpu_torch.ops import _native
 
@@ -2512,8 +2650,10 @@ def measure(root: str) -> int:
     biggs, _ = host_path_solve(dev, "graph", max_iter=HOST_PATH_CAP)
     rescue, _ = headline_rescue(dev, "graph")
     memory = peak_memory(dev)
+    ladder = phase_memory(dev, bar=None)
     _log(json.dumps({"root": root, "headline": head, "ldlt": ldlt, "chol": chol,
-                     "host_path": {"biggs_capped": biggs, "headline_rescue": rescue}, "memory": memory}))
+                     "host_path": {"biggs_capped": biggs, "headline_rescue": rescue}, "memory": memory,
+                     "memory_ladder": ladder}))
     return 0
 
 
@@ -2614,12 +2754,19 @@ def main() -> int:
 
     # phase 21 before the pool too: its walls and ms per host check are
     # the host's, which the pool's workers would share
-    fl.LAUNCHES = 0
-    _phase("phase 21: the graph route against the eager route (biggs_exp6_24 f64, the headline's rescue)")
+    fl.LAUNCHES = bc.FUSED_LAUNCHES = 0
+    _phase("phase 21: the graph route against the eager route (biggs_exp6_24 f64, the headline's rescue, "
+           "linsolve='chol' at B = 4)")
     host_path = phase_host_path(dev)
     host_path["launches"] = fl.LAUNCHES
-    if host_path["launches"] <= 0:
-        raise AssertionError("phase 21: the headline did not launch the fused LDLT kernel")
+    host_path["launches_chol_fused"] = bc.FUSED_LAUNCHES
+    if host_path["launches"] <= 0 or host_path["launches_chol_fused"] <= 0:
+        raise AssertionError(f"phase 21: the headline launched the fused LDLT kernel {fl.LAUNCHES} times and "
+                             f"the chol batch the Cholesky kernel {bc.FUSED_LAUNCHES} times")
+
+    _phase("phase 23: peak device memory of the graph and eager routes, large_rung_problem(m, 1024) at m = "
+           + ", ".join(f"{m:,}" for m in MEMORY_ROWS))
+    memory = phase_memory(dev)
 
     # the battery's solves are host-bound: with 8 workers on an H100's
     # 8-CPU host every row ran at half the speed it has beside two others
@@ -2709,6 +2856,8 @@ def main() -> int:
         "launches_config4_per_rank": sharded["launches_cfg4_per_rank"],
         # phase 20: the large rung under 'bfloat16' at the kernel seam
         "launches_precision": prec_launches["chol_fused"],
+        # phase 21: the exp-fit batch at B = 4 through the kernel on both routes
+        "launches_host_path": host_path["launches_chol_fused"],
         # phase 22: bench_chol's rows at N = 256, 512, 1024 (f32, nb = 128)
         "launches_bench_chol": entries["bench_chol"]["launches"][0],
         "bench_chol": [_chol_row(r) for r in entries["bench_chol"]["rows"] if r["route"] == "fused"],
@@ -2733,7 +2882,7 @@ def main() -> int:
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},
-        "matmul_precision": prec, "host_path": host_path,
+        "matmul_precision": prec, "host_path": host_path, "memory": memory,
         "entry_points": {k: v for k, v in entries.items() if k not in ("bench_chol", "perf_profile")}}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -667,3 +667,118 @@ def test_mesh2d_on_card_matches_one_process(cuda):
             assert np.array_equal(r[case]["x"], got[0][case]["x"]), case
     assert all("should be divisible by 2" in r["uneven_B"] and "should be divisible by 2" in r["uneven_m"]
                for r in got)
+
+
+def _exp_fit_on(dev, dtype, B, route, pallas_chol_min=None):
+    """The 2-D mesh's exp-fit batch (``torch_ranks.exp_fit_batch``, m = 32)
+    in ``dtype`` through ``vsolve`` (Gauss–Newton, condensed,
+    ``linsolve="chol"``) on ``route``: the solver and the states."""
+    import torch_ranks
+    from cannoles_tpu_torch import nls_problem
+
+    t, y = torch_ranks.exp_fit_batch(B)
+    own = {"t": torch.as_tensor(t[0], dtype=dtype, device=dev), "y": torch.as_tensor(y[0], dtype=dtype, device=dev)}
+    pb = nls_problem(lambda x, d: x[0] * torch.exp(-x[1] * d["t"]) - d["y"], [1.0, 0.0], 32, data=own,
+                     name="exp_fit", dtype=dtype, device=dev)
+    s = CaNNOLeSSolver(pb, method="gauss_newton", linsolve="chol", kkt="condensed", pallas_chol_min=pallas_chol_min)
+    if route == "eager":
+        _eager(s)
+    x0 = np.tile(pb.x0.cpu().numpy(), (B, 1))
+    return s, vsolve(pb, x0, data_batch={"t": t, "y": y}, solver=s, max_iter=20).states
+
+
+@pytest.mark.parametrize("pallas_chol_min", [None, 0], ids=["cholesky", "kernels"])
+@pytest.mark.parametrize("B", [4, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_chol_batch_on_graph_route_on_card(cuda, dtype, B, pallas_chol_min):
+    """``linsolve="chol"`` at B > 1 on the graph route (ROADMAP queue 3 C4:
+    a batched ``torch.cholesky_solve`` went to MAGMA, which allocates inside
+    the capture): the exp-fit batch captures and replays, its states equal
+    the eager route's bit for bit and its statuses the CPU run's (every lane
+    ``first_order``); with ``pallas_chol_min=0`` the n = 2 block, padded to
+    128, goes through the Cholesky kernel inside the captured segments,
+    counted alike on both routes."""
+    runs = {}
+    for route in ("graph", "eager"):
+        f0 = tchol.FUSED_LAUNCHES
+        s, st = _exp_fit_on(cuda, dtype, B, route, pallas_chol_min)
+        torch.cuda.synchronize()
+        runs[route] = (s, st, tchol.FUSED_LAUNCHES - f0)
+    (g, a, la), (_, b, lb) = runs["graph"], runs["eager"]
+    assert (g.route, g.route_reason) == ("graph", "cuda") and g.graph_replays().get("solve0", 0) > 0
+    _bits_equal(a, b)
+    _, c = _exp_fit_on(torch.device("cpu"), dtype, B, "eager", pallas_chol_min)
+    assert torch.equal(a.status.cpu(), c.status) and set(c.status.tolist()) == {1}
+    assert la == lb and (la > 0) == (pallas_chol_min == 0)
+
+
+@pytest.mark.parametrize("B,N", [(4, 2), (64, 2), (8, 300), (64, 300), (16, 600), (64, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_chol_steps_capture_at_b_above_1_on_card(cuda, dtype, B, N):
+    """The solver's batched Cholesky steps (``_cholesky_nan``, then
+    ``_cho_solve``'s two triangular solves) captured as one CUDA graph:
+    the replay equals the eager call bit for bit, from the exp-fit batch's
+    N = 2 up to B = 64, N = 1,024 (PyTorch picks cuBLAS or MAGMA for a
+    triangular solve by B and N; a batched ``torch.cholesky_solve`` went to
+    MAGMA's ``potrs_batched``, which allocates inside a capture)."""
+    from cannoles_tpu_torch.core.solver import _cho_solve, _cholesky_nan
+
+    g = torch.Generator().manual_seed(N)
+    A = torch.randn(B, N, N, dtype=dtype, generator=g) / N ** 0.5
+    A = (A @ A.mT + torch.eye(N, dtype=dtype)).to(cuda)
+    b = torch.randn(B, N, dtype=dtype, generator=g).to(cuda)
+    ref = _cho_solve(_cholesky_nan(A), b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _cho_solve(_cholesky_nan(A), b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_vsolve_auto_takes_chol_on_the_graph_route_on_card(cuda):
+    """``vsolve(linsolve="auto")`` on a condensed Gauss–Newton family with
+    n + p = 256 > 240, the fused kernel's float32 cap (the large rung's
+    problem at m = 512, n = 256, eight data draws, B = 8): it picks
+    ``chol``, takes the graph route and solves every lane."""
+    from cannoles_tpu_torch.models.families import large_rung_problem
+
+    m, n, B = 512, 256, 8
+    pb = large_rung_problem(m, n, seed=0, device=cuda)[0]
+    draws = [large_rung_problem(m, n, seed=k, device=cuda)[0].data for k in range(B)]
+    data = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+    res = vsolve(pb, torch.zeros(B, n, device=cuda), data_batch=data, method="gauss_newton", kkt="condensed",
+                 linsolve="auto", max_iter=30)
+    s = res.solver
+    assert s.linsolve == "chol" and (s.route, s.route_reason) == ("graph", "cuda")
+    assert s.graph_replays().get("solve0", 0) > 0
+    assert res.states.status.tolist() == [1] * B
+
+
+def test_graph_route_peak_memory_at_the_large_rung_on_card(cuda):
+    """ROADMAP queue 3 C1: three solves of the large rung (8192 x 1024 f32,
+    ``chol``) on one solver; the graph route's peak allocated memory is at
+    most 1.25 times the eager route's (0.723 against 0.392 GB on an H100
+    80GB HBM3 at 700 W while the bank copied the data into each state it
+    kept)."""
+    import gc
+
+    from cannoles_tpu_torch.models.families import large_rung_problem
+
+    pb = large_rung_problem(dtype=torch.float32, device=cuda)[0]
+    peak = {}
+    for route in ("eager", "graph"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol", block_size=256,
+                           dtype=torch.float32)
+        if route == "eager":
+            _eager(s)
+        assert [s.solve(max_iter=30, max_time=600.0).status for _ in range(3)] == ["first_order"] * 3
+        torch.cuda.synchronize()
+        peak[route] = torch.cuda.max_memory_allocated(cuda)
+        del s
+    assert peak["graph"] <= 1.25 * peak["eager"], peak

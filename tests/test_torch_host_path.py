@@ -275,7 +275,7 @@ def test_graph_route_keeps_its_most_recent_banks(monkeypatch):
 ], ids=["ldlt", "robust_fallback", "condensed_refit", "descent_rescue"])
 def test_traced_evaluators_equal_the_eager_ones(monkeypatch, kw):
     """The CPU's traced B = 1 evaluators (aten operations recorded by
-    ``make_fx`` and replayed through TorchScript) give the eager
+    ``make_fx`` and replayed by the recorded ``GraphModule``) give the eager
     evaluators' states, counters and host checks bit for bit; here every
     evaluator is traced at its first call (``TRACE_CALLS`` = 1) against
     none traced, on ``hs6`` (constrained) and ``biggs_exp6_24`` to 80 outer

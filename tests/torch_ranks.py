@@ -135,10 +135,7 @@ MESH2D_CASES = {  # name -> (problem kind, rows, vsolve keywords)
 def mesh2d_solve(mesh, case: str, B: int = 4, m=None, device="cpu"):
     """One case of ``MESH2D_CASES`` through ``vsolve`` (Gauss–Newton, chol,
     condensed) on ``mesh`` (a 2-D mesh, or None for the one-process solve):
-    the whole result's fields as numpy.  The one-process solve runs on the
-    eager route: on the card's graph route ``linsolve="chol"`` at B > 1
-    cannot be captured (MAGMA's batched ``cholesky_solve`` allocates;
-    ROADMAP queue 3), and a mesh's solver is eager anyway."""
+    the whole result's fields as numpy."""
     kind, rows, kw = MESH2D_CASES[case]
     m = rows if m is None else m
     pb = exp_fit_problem(m, kind, device)
@@ -146,7 +143,6 @@ def mesh2d_solve(mesh, case: str, B: int = 4, m=None, device="cpu"):
     x0 = np.tile(pb.x0.cpu().numpy(), (B, 1))  # lam0: the problem's y0 on every lane
     solver = tc.CaNNOLeSSolver(pb, method="gauss_newton", linsolve="chol", kkt="condensed",
                                mesh=None if mesh is None else mesh.rows)
-    solver.route = "eager"
     res = tc.vsolve(pb, x0, data_batch={"t": t, "y": y}, solver=solver, mesh=mesh, **kw)
     return {f: getattr(res.states, f).cpu().numpy() for f in ("x", "status", "iter", "nfact", "nlinsolve")}
 
