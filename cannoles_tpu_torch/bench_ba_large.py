@@ -48,6 +48,7 @@ import torch
 from .core.ba import SchurBASolver, ba_block_jacobi
 from .core.matfree import MatrixFreeSolver
 from .models.ba_large import large_bundle_adjustment
+from .utils.profiling import busy_s
 
 __all__ = ["run_scene", "parser", "main", "TOL"]
 
@@ -61,19 +62,6 @@ PROFILE_ITERS = 2
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _busy_s(intervals):
-    """Length of the union of [start, end) intervals given in µs, in s."""
-    total, end = 0.0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total / 1e6
 
 
 def _profiled_window(make_solver, kw, iters, dev):
@@ -90,7 +78,7 @@ def _profiled_window(make_solver, kw, iters, dev):
         _sync(dev)
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return _busy_s([(e.time_range.start, e.time_range.end) for e in events]), wall, len(events)
+    return busy_s([(e.time_range.start, e.time_range.end) for e in events]), wall, len(events)
 
 
 def run_scene(cams=100, pts=10_000, gauge="fixed", visibility=1.0, device="cuda",

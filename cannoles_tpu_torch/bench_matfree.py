@@ -43,9 +43,9 @@ import time
 import numpy as np
 import torch
 
-from .bench_ba_large import _busy_s
 from .core.matfree import MatrixFreeSolver
 from .problem import NLSProblem, default_device, nls_problem
+from .utils.profiling import busy_s
 
 __all__ = ["SinFeatureMatvec", "separable_fit_problem", "run_fit", "parser", "main", "TILE_ROWS"]
 
@@ -161,7 +161,7 @@ def _profiled_window(pb: NLSProblem, cg_maxiter: int, dev):
         _sync(dev)
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return _busy_s([(e.time_range.start, e.time_range.end) for e in events]), wall, len(events)
+    return busy_s([(e.time_range.start, e.time_range.end) for e in events]), wall, len(events)
 
 
 def run_fit(m: int = 2**21, n: int = 4096, cg_maxiter: int = 100, *, device="cuda",

@@ -322,6 +322,7 @@ class CaNNOLeSSolver:
         multiplier_refit: bool = False,
         block_size: int = 32,
         kkt: str = "full",
+        debug_print: bool = False,
         params: Optional[Params] = None,
         delta_min: Optional[float] = None,
         quality_gate: Optional[bool] = None,
@@ -376,6 +377,8 @@ class CaNNOLeSSolver:
         self.quality_gate = (N >= 16) if quality_gate is None else bool(quality_gate)
         self.robust_fallback = bool(robust_fallback) and linsolve != "eigh"
         self.descent_rescue = bool(descent_rescue) and linsolve != "eigh"
+        # one row per outer iteration and active lane (``_debug_rows``)
+        self.debug_print = bool(debug_print)
         self.dtype = problem.x0.dtype if dtype is None else dtype
         if not self.dtype.is_floating_point:
             self.dtype = torch.float64
@@ -474,6 +477,7 @@ class CaNNOLeSSolver:
             multiplier_refit=self.multiplier_refit,
             block_size=self.block_size,
             kkt=self.kkt,
+            debug_print=self.debug_print,
             params=self.params,
             quality_gate=self.quality_gate,
             robust_fallback=self.robust_fallback,
@@ -1231,9 +1235,10 @@ class CaNNOLeSSolver:
         nxt = s.status == Status.UNKNOWN
         return dict(s=s, nxt=nxt, flags=_flags(nxt))
 
-    def _outer(self, t) -> bool:
+    def _outer(self, t, rows: bool = True) -> bool:
         """One outer iteration for the lanes of ``t.nxt`` (the others keep
-        their state); returns whether any lane is left to solve."""
+        their state); returns whether any lane is left to solve.  With
+        ``debug_print`` (and ``rows``) it prints the iteration's rows."""
         run_segment(t, "outer_pre", self._seg_outer_pre)
         go, do_solve = self._check(t.flags)
         while go:
@@ -1250,7 +1255,23 @@ class CaNNOLeSSolver:
         if re:
             run_segment(t, "recheck_outer", self._seg_recheck_outer)
             nxt = self._check(t.flags)[0]
+        if self.debug_print and rows:
+            self._debug_rows(t)
         return nxt
+
+    def _debug_rows(self, t):
+        """``debug_print``'s rows after an outer iteration: one per lane
+        that took it, in lane order, in the JAX package's column set and
+        format (its in-graph print).  The values are read on the host,
+        outside ``host_syncs``; on a row mesh rank 0 prints."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
+        s = t.s
+        lanes = torch.nonzero(t.active).flatten()
+        cols = ("iter", "fx", "normdual", "normprimal", "alpha", "rho", "delta", "inner_iter", "nbk")
+        for i, f, nd, np_, a, rho, dl, ii, nbk in zip(*(getattr(s, c)[lanes].tolist() for c in cols)):
+            print(f"iter={i} f={f:.3e} ‖∇L‖={nd:.2e} ‖c‖={np_:.2e} α={a:.2e} "
+                  f"ρ={rho:.2e} δ={dl:.2e} in_it={ii} nbk={nbk}")
 
     def _outer_step(self, s: SolverState, cfg: RunConfig, active) -> SolverState:
         """One outer iteration for the lanes of ``active`` as a function; the
@@ -1482,7 +1503,7 @@ class CaNNOLeSSolver:
                 load(t, x0=x0, lam0=lam0, cfg=cfg, data=data, adopt=("data",) if own else ())
                 self._init(t)
             load(t, nxt=torch.ones_like(t.s.broken))
-            self._outer(t)
+            self._outer(t, rows=False)
         finally:
             self.host_syncs = syncs
             restore_counters(launches)

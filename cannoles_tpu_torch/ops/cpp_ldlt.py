@@ -31,7 +31,7 @@ import threading
 
 import torch
 
-__all__ = ["cpp_ldlt_factor_solve", "lib_path"]
+__all__ = ["cpp_available", "cpp_ldlt_factor_solve", "lib_path", "native_lib_path"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "ldlt_host.cpp"
@@ -65,6 +65,11 @@ def lib_path(src: pathlib.Path = _SRC, flags=_FLAGS) -> pathlib.Path:
     return _BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
+def native_lib_path() -> pathlib.Path:
+    """Where this host's build of ``csrc/ldlt_host.cpp`` lives (``lib_path``)."""
+    return lib_path()
+
+
 def _build(lib: pathlib.Path, src: pathlib.Path = _SRC, flags=_FLAGS) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
@@ -91,6 +96,15 @@ def _load():
             cdll.cannoles_ldlt_factor_solve_batch.argtypes = [I, I, I, D, P, P, P, P, P]
             _LIB = cdll
         return _LIB
+
+
+def cpp_available() -> bool:
+    """Whether the library builds (or is built) and loads on this host."""
+    try:
+        _load()
+        return True
+    except (RuntimeError, OSError):
+        return False
 
 
 def cpp_ldlt_factor_solve(W: torch.Tensor, rhs: torch.Tensor, nvar: int, eig_tol: float):

@@ -34,6 +34,8 @@ __all__ = [
     "eigh_factor",
     "eigh_solve",
     "inertia_success",
+    "factorize",
+    "factor_solve",
     "safe_inverse",
 ]
 
@@ -150,3 +152,23 @@ def inertia_success(vec: torch.Tensor, mat: torch.Tensor, nvar: int, eig_tol: fl
     zer = (vec.abs() <= eig_tol).sum(-1)
     finite = torch.isfinite(vec).all(-1) & torch.isfinite(mat).flatten(1).all(-1)
     return (pos == nvar) & (zer == 0) & finite
+
+
+def factorize(A: torch.Tensor, eig_tol: float, nvar: int, backend: str = "ldlt", nb: int = 32):
+    """Factor and test the inertia of each lane: (factorization, success
+    (B,)).  ``backend`` ∈ {'ldlt', 'eigh'}; ``nb`` (the JAX package's panel
+    width) is accepted so that its calls carry over, and read by neither."""
+    if backend == "eigh":
+        fac = eigh_factor(A, eig_tol)
+    elif backend == "ldlt":
+        fac = ldlt_factor(A, eig_tol)
+    else:
+        raise ValueError(f"unknown linsolve backend {backend!r}")
+    return fac, inertia_success(fac.vec, fac.mat, nvar, eig_tol)
+
+
+def factor_solve(fac: Factorization, rhs: torch.Tensor, eig_tol: float, backend: str = "ldlt") -> torch.Tensor:
+    """Solve with a factorization of ``factorize``'s ``backend``."""
+    if backend == "eigh":
+        return eigh_solve(fac, rhs, eig_tol)
+    return ldlt_solve(fac, rhs, eig_tol)

@@ -200,6 +200,15 @@ class NLSProblem:
             J = _as_dtype(self._apply("Jfwd", lambda: jacfwd(self.residual), x, data=data), x)
         return J.transpose(-2, -1)
 
+    def J(self, x, data=None):
+        """(B, nequ, nvar) residual Jacobian."""
+        return self.Jt(x, data).transpose(-2, -1)
+
+    def F_and_J(self, x, data=None):
+        """(F(x), J) from one forward-mode pass (``F_and_Jt``)."""
+        Fx, JxT = self.F_and_Jt(x, data)
+        return Fx, JxT.transpose(-2, -1)
+
     def F_and_Jt(self, x, data=None):
         """(F(x), Jᵀ) from one forward-mode pass (the residual is evaluated
         once, as the JAX package's linearize does)."""
@@ -257,13 +266,13 @@ class NLSProblem:
 
         return self._mapped("jprod_res", one, 2, data)(x, v, data)
 
-    def jtprod_res(self, x, w, data=None):
-        """J(x)ᵀ w, (B, nvar): one reverse-mode pass (jtprod_residual!)."""
+    def jtprod_res(self, x, v, data=None):
+        """J(x)ᵀ v, (B, nvar): one reverse-mode pass (jtprod_residual!)."""
 
         def one():
-            return lambda z, ww, d: vjp(lambda zz: self.residual(zz, d), z)[1](ww)[0]
+            return lambda z, w, d: vjp(lambda zz: self.residual(zz, d), z)[1](w)[0]
 
-        return self._mapped("jtprod_res", one, 2, data)(x, w, data)
+        return self._mapped("jtprod_res", one, 2, data)(x, v, data)
 
     def res_pullback(self, x, data=None):
         """w ↦ J(x)ᵀ w for repeated use at one x: one forward pass with its
@@ -282,15 +291,15 @@ class NLSProblem:
 
         return self._mapped("jprod_cons", one, 2, data)(x, v, data)
 
-    def jtprod_cons(self, x, w, data=None):
-        """Jc(x)ᵀ w, (B, nvar) (jtprod!)."""
+    def jtprod_cons(self, x, v, data=None):
+        """Jc(x)ᵀ v, (B, nvar) (jtprod!)."""
         if self.ncon == 0:
             return torch.zeros_like(x)
 
         def one():
-            return lambda z, ww, d: vjp(lambda zz: self.cons(zz, d), z)[1](ww)[0]
+            return lambda z, w, d: vjp(lambda zz: self.cons(zz, d), z)[1](w)[0]
 
-        return self._mapped("jtprod_cons", one, 2, data)(x, w, data)
+        return self._mapped("jtprod_cons", one, 2, data)(x, v, data)
 
     def hprod_res(self, x, r, v, data=None):
         """(Σᵢ rᵢ ∇²Fᵢ(x)) v, (B, nvar), forward over reverse (hprod_residual!)."""

@@ -9,6 +9,11 @@ Port of ``cannoles_tpu/utils/profiling.py``.
   stages are timed with CUDA events, on the CPU with ``time.perf_counter``.
 * :func:`trace`: a ``torch.profiler`` capture (CPU and, with a card, CUDA
   activity) written as a Chrome trace, ``trace.json`` under ``log_dir``.
+* :func:`profile_device` and :func:`busy_s`: the card's operations of one
+  call under ``torch.profiler``, and the device's busy time, the length of
+  the union of their intervals (each operation counted once).  The card's
+  readings of the port's runners (``bench``, ``chip_smoke.py``) go through
+  them.
 
 The counters (nfact, nlinsolve, nbk, ncg, evaluations) ride the state.
 """
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import pathlib
+import sys
 import time
 from typing import Dict
 
@@ -24,7 +30,7 @@ import torch
 
 from ..core.solver import _add_batch_axis
 
-__all__ = ["stage_timings", "trace"]
+__all__ = ["stage_timings", "trace", "busy_s", "profile_device"]
 
 
 @contextlib.contextmanager
@@ -41,6 +47,101 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def busy_s(intervals) -> float:
+    """Length of the union of [start, end) intervals given in µs, in s."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e6
+
+
+# torch.profiler on the card goes through CUPTI, which lost device
+# operations on an H100 in two ways.  (1) Started early (before the
+# kernels' libraries were loaded, or just after), it recorded only part of
+# the card's operations in every later session (5 to 7 of the 11 of one
+# Cholesky factorization); started first at the first reading, after a
+# warm call of what it reads, it recorded all 11.  So the profiler starts
+# at the first reading (``_profiler_works``, called from
+# ``profile_device``), once the kernels are loaded.  (2) A session that
+# starts after the card has idled for seconds may lose its first device
+# operations; a spin kernel of about 100 ms launched just before the
+# session keeps the card busy across the profiler's start, and the
+# session's work queues behind it (``_session``; launched before
+# the session, the spin is in no reading).  A session that records no
+# device operation is repeated, up to PROFILE_TRIES sessions.  Where the
+# first sessions around a plain kernel record nothing, the profiler does
+# not trace this card at all, and its readings are not measured (None).
+PROFILE_TRIES = 3
+PROFILE_LEAD_CYCLES = 200_000_000  # ~100 ms at the H100's SM clock (≤ 1.98 GHz)
+_PROFILER_WORKS = None
+
+
+def _stderr(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def _session(fn):
+    """``fn()`` and a synchronize under ``torch.profiler``, behind a spin
+    kernel launched just before the session: ``fn``'s value and the
+    session's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof.events()
+
+
+def _profiler_works(dev, log=_stderr) -> bool:
+    """Whether ``torch.profiler`` records the card's operations in this
+    process: up to ``PROFILE_TRIES`` sessions around a plain kernel, the
+    first time a reading is profiled (they also start CUPTI, before the
+    first session that is read)."""
+    global _PROFILER_WORKS
+    if _PROFILER_WORKS is None:
+        from torch.autograd import DeviceType
+
+        x = torch.ones(1 << 20, device=dev)
+        seen = []
+        for _ in range(PROFILE_TRIES):
+            _, events = _session(lambda: x.mul_(1.0))
+            seen.append(sum(1 for e in events if e.device_type == DeviceType.CUDA))
+            if seen[-1]:
+                break
+        _PROFILER_WORKS = bool(seen[-1])
+        log(f"  torch.profiler: device operations recorded per session {seen}"
+            + ("" if _PROFILER_WORKS else ": it does not trace this card; its readings are not measured"))
+    return _PROFILER_WORKS
+
+
+def profile_device(fn, what: str, log=_stderr):
+    """``fn()`` in a profiler session (``_session``): ``fn``'s
+    value, the session's events and those whose device is the card.  A
+    session that records no device operation is repeated (``fn`` runs
+    again), and after ``PROFILE_TRIES`` sessions the call raises.  Where the
+    profiler does not trace the card (``_profiler_works``), ``fn`` runs once,
+    unprofiled, and both lists are None."""
+    from torch.autograd import DeviceType
+
+    if not _profiler_works(torch.device("cuda", torch.cuda.current_device()), log):
+        out = fn()
+        torch.cuda.synchronize()
+        return out, None, None
+    for k in range(PROFILE_TRIES):
+        out, events = _session(fn)
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        if device:
+            return out, events, device
+        log(f"  torch.profiler recorded no device operation in {what} (session {k + 1} of {PROFILE_TRIES})")
+    raise AssertionError(f"torch.profiler recorded no device operation in {what} in {PROFILE_TRIES} sessions")
 
 
 def _timer(device: torch.device, reps: int):

@@ -104,6 +104,19 @@ pool:
    the graph route's peak allocated at most ``MEMORY_RATIO_BAR`` times the
    eager route's.
 
+Phase 24 (the repo's headline benchmark on the card) runs after phase 23,
+before the pool, alone on the card, since its walls are timing:
+
+24. ``python -m cannoles_tpu_torch.bench`` (the port of the repo-root
+   ``bench.py``: the headline ladder, the BA rung and the large rung) in a
+   process of its own: it must exit 0, and the last line of its standard
+   output must carry every key of the JAX script's line, none null; the
+   best rung's ``headline_solved`` at least 99% of its B (read from the
+   rung's line on the bench's standard error), ``ba_solved`` at least
+   ``BENCH_BA_SOLVED``/256, and the large rung ``first_order`` with
+   max |x − x_true| ≤ ``BENCH_LARGE_ERR`` (from its line on standard
+   error).  The line and the phase's wall are printed.
+
 Phases 11 and 12 share one pool of worker processes (``battery.solve_index``,
 four processes) that solves the battery's 90 problems in three
 settings, the longest rows first: the uniform pass (no rescues and no
@@ -247,6 +260,7 @@ import contextlib
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -732,83 +746,30 @@ def phase_chol_kernels(dev):
     return worst, worst_ill
 
 
-# torch.profiler on the card goes through CUPTI, which lost device
-# operations on an H100 in two ways.  (1) Started early (in phase 1, or in
-# phase 2 after the kernels' libraries were loaded), it recorded only part
-# of the card's operations in every later session (phase 7: 5 to 7 of the
-# 11 of one factorization); started first at phase 7's reading, after a
-# warm call of what it reads, it recorded all 11 in every run but one.
-# So the profiler starts at the first reading (``_profiler_works``, called
-# from ``_profile_device``).  (2) A session that starts after the card has
-# idled for seconds may lose its first device operations; a spin kernel of
-# about 100 ms launched just before the session keeps the card busy across
-# the profiler's start, and the session's work queues behind it
-# (``_session``; launched before the session, the spin is in no reading).
-# A session that records no device operation (all 11 of phase 7's, in
-# that one run) is repeated, up to PROFILE_TRIES sessions.  Where the
-# first sessions around a plain kernel record nothing, the profiler does
-# not trace this card at all: the readings it would give are "not
-# measured" (None), and every check that does not read it still holds.
-PROFILE_TRIES = 3
-PROFILE_LEAD_CYCLES = 200_000_000  # ~100 ms at the H100's SM clock (≤ 1.98 GHz)
-_PROFILER_WORKS = None
-
-
-def _session(fn):
-    """``fn()`` and a synchronize under ``torch.profiler``, behind a spin
-    kernel launched just before the session: ``fn``'s value and the
-    session's events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda._sleep(PROFILE_LEAD_CYCLES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, prof.events()
-
-
-def _profiler_works(dev) -> bool:
-    """Whether ``torch.profiler`` records the card's operations in this
-    process: up to ``PROFILE_TRIES`` sessions around a plain kernel, the
-    first time a reading is profiled (they also start CUPTI, before the
-    first session that is read)."""
-    global _PROFILER_WORKS
-    if _PROFILER_WORKS is None:
-        from torch.autograd import DeviceType
-
-        x = torch.ones(1 << 20, device=dev)
-        seen = []
-        for _ in range(PROFILE_TRIES):
-            _, events = _session(lambda: x.mul_(1.0))
-            seen.append(sum(1 for e in events if e.device_type == DeviceType.CUDA))
-            if seen[-1]:
-                break
-        _PROFILER_WORKS = bool(seen[-1])
-        _log(f"  torch.profiler: device operations recorded per session {seen}"
-             + ("" if _PROFILER_WORKS else ": it does not trace this card; its readings are not measured"))
-    return _PROFILER_WORKS
+# torch.profiler's readings go through the package's helpers
+# (``cannoles_tpu_torch/utils/profiling.py``: the profiler starts at the
+# first reading, each session behind a ~100 ms spin, an empty session
+# repeated up to 3 times, None where it never records the card).
 
 
 def _profile_device(fn, what):
-    """``fn()`` in a profiler session (``_session``): ``fn``'s value, the
-    session's events and those whose device is the card.  A session that
-    records no device operation is repeated (``fn`` runs again), and after
-    ``PROFILE_TRIES`` sessions the call raises.  Where the profiler does
-    not trace the card (``_profiler_works``), ``fn`` runs once, unprofiled,
-    and both lists are None."""
-    from torch.autograd import DeviceType
-
-    if not _profiler_works(torch.device("cuda", torch.cuda.current_device())):
+    """``utils.profiling.profile_device`` with this script's log: ``fn``'s
+    value, the session's events and the card's (None where the profiler
+    does not trace the card, or for a package from before the helpers
+    moved into it, as ``--against`` an older tree)."""
+    try:
+        from cannoles_tpu_torch.utils.profiling import profile_device
+    except ImportError:
         out = fn()
         torch.cuda.synchronize()
         return out, None, None
-    for k in range(PROFILE_TRIES):
-        out, events = _session(fn)
-        device = [e for e in events if e.device_type == DeviceType.CUDA]
-        if device:
-            return out, events, device
-        _log(f"  torch.profiler recorded no device operation in {what} (session {k + 1} of {PROFILE_TRIES})")
-    raise AssertionError(f"torch.profiler recorded no device operation in {what} in {PROFILE_TRIES} sessions")
+    return profile_device(fn, what, log=_log)
+
+
+def _busy_s(intervals):
+    from cannoles_tpu_torch.utils.profiling import busy_s
+
+    return busy_s(intervals)
 
 
 def _launches(fn):
@@ -902,19 +863,6 @@ def _solve_summary(st):
     ss = st.solver_specific
     return (f"{st.status}, iter {st.iter}, nfact {ss['nfact']}, nlinsolve {ss['nlinsolve']}, "
             f"nbk {ss['nbk']}, msg '{ss['internal_msg']}'")
-
-
-def _busy_s(intervals):
-    """Length of the union of [start, end) intervals given in µs, in s."""
-    total, end = 0.0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total / 1e6
 
 
 def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
@@ -2619,6 +2567,62 @@ def phase_memory(dev, sizes=MEMORY_ROWS, n=1024, bar=MEMORY_RATIO_BAR):
     return out
 
 
+BENCH_TIMEOUT = 900
+BENCH_BA_SOLVED = 254
+BENCH_LARGE_ERR = 1e-3  # phase 8's bar
+BENCH_KEYS = ("ba_scenes_per_s", "ba_scenes_per_s_device", "ba_solved", "ba_mfu_pct", "large_ms_per_solve",
+              "large_ms_device", "large_ms_device_bf16", "large_mfu_pct", "warmup_s", "total_s", "headline_solved",
+              "headline_failures_pre_rescue", "backend", "device_name", "power_limit")
+
+
+def check_bench(line: dict, err: str) -> dict:
+    """Phase 24's checks of the bench's JSON line and standard error: every
+    key there and filled, the headline's solved count against its rung's B,
+    the BA rung's solved count, the large rung's status and error.  Returns
+    the best rung and the large rung's status and error."""
+    extra = line.get("extra", {})
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline") if line.get(k) is None]
+    missing += [k for k in BENCH_KEYS if extra.get(k) is None]
+    if missing:
+        raise AssertionError(f"phase 24: the bench's line lacks or nulls {missing}")
+    rungs = [dict(B=int(B), value=float(v), solved=int(sv))
+             for B, v, sv in re.findall(r"^# pallas B=(\d+) chunk=\S+: (\d+) inst/s solved=(\d+)/\d+", err, re.M)]
+    best = [r for r in rungs if abs(r["value"] - line["value"]) <= 1.0 and r["solved"] == int(extra["headline_solved"])]
+    if not best:
+        raise AssertionError(f"phase 24: no rung line matches the headline {line['value']} ({rungs})")
+    B = best[0]["B"]
+    if int(extra["headline_solved"]) < 0.99 * B:
+        raise AssertionError(f"phase 24: headline solved {extra['headline_solved']}/{B} < 99%")
+    solved, total = map(int, extra["ba_solved"].split("/"))
+    if solved < BENCH_BA_SOLVED * total / 256:
+        raise AssertionError(f"phase 24: BA rung solved {extra['ba_solved']} < {BENCH_BA_SOLVED}/256")
+    m = re.search(r"^# large rung: .* status=(\d+) err=(\S+) ", err, re.M)
+    if m is None:
+        raise AssertionError("phase 24: no large rung line on the bench's standard error")
+    status, large_err = int(m.group(1)), float(m.group(2))
+    if status != 1 or not large_err <= BENCH_LARGE_ERR:  # 1: first_order
+        raise AssertionError(f"phase 24: large rung status {status}, max |x - x_true| {large_err}")
+    return dict(best_rung=best[0], large_status=status, large_err=large_err)
+
+
+def phase_bench() -> dict:
+    """Phase 24: the bench module in a process of its own, checked."""
+    t24 = time.perf_counter()
+    here = str(pathlib.Path(__file__).resolve().parent)
+    r = subprocess.run([sys.executable, "-m", "cannoles_tpu_torch.bench"], capture_output=True, text=True,
+                       cwd=here, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t24
+    for line in r.stderr.strip().splitlines():
+        _log(f"  {line}")
+    lines = r.stdout.strip().splitlines()
+    if r.returncode or not lines:
+        raise AssertionError(f"phase 24: the bench exited {r.returncode}: {r.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    _log(f"  bench line: {lines[-1]}")
+    _log(f"  phase 24 took {wall:.1f} s")
+    return dict(line=line, wall_s=wall, **check_bench(line, r.stderr))
+
+
 def _stop(runs):
     for p, f in runs.values():
         if p.poll() is None:
@@ -2768,6 +2772,11 @@ def main() -> int:
            + ", ".join(f"{m:,}" for m in MEMORY_ROWS))
     memory = phase_memory(dev)
 
+    # phase 24 alone on the card too: its walls are the bench's timing
+    torch.cuda.empty_cache()
+    _phase("phase 24: the headline benchmark, python -m cannoles_tpu_torch.bench")
+    bench = phase_bench()
+
     # the battery's solves are host-bound: with 8 workers on an H100's
     # 8-CPU host every row ran at half the speed it has beside two others
     # (biggs_exp6_24 on the CPU: 318 s against 160 s), and its card row,
@@ -2882,7 +2891,7 @@ def main() -> int:
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},
-        "matmul_precision": prec, "host_path": host_path, "memory": memory,
+        "matmul_precision": prec, "host_path": host_path, "memory": memory, "bench": bench,
         "entry_points": {k: v for k, v in entries.items() if k not in ("bench_chol", "perf_profile")}}))
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -782,3 +782,41 @@ def test_graph_route_peak_memory_at_the_large_rung_on_card(cuda):
         peak[route] = torch.cuda.max_memory_allocated(cuda)
         del s
     assert peak["graph"] <= 1.25 * peak["eager"], peak
+
+
+def test_debug_print_rows_equal_on_both_routes_on_card(cuda):
+    """``debug_print=True`` at B = 48 (the headline family, float32, the
+    fused kernel): the graph route prints the eager route's rows, one per
+    lane that took the outer iteration."""
+    import contextlib
+    import io
+
+    x0, d = lm_bench_batch(48, seed=0)
+    rows = {}
+    for route in ("graph", "eager"):
+        pb = lm_bench_family(torch.float32, cuda)
+        s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, debug_print=True)
+        if route == "eager":
+            _eager(s)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=cuda),
+                         data_batch=torch.as_tensor(d, dtype=torch.float32, device=cuda), solver=s, max_iter=50)
+        rows[route] = buf.getvalue().splitlines()
+        assert len(rows[route]) == int(res.states.iter.sum())
+    assert rows["graph"] == rows["eager"]
+
+
+def test_bench_rungs_on_card(cuda):
+    """``cannoles_tpu_torch.bench`` at small shapes on the card: a ladder
+    rung of 256 lanes, the BA rung at 16 scenes and the large rung at
+    1024 x 128, with the device's busy time measured (or None where the
+    profiler does not record the card) and every solve solved."""
+    from cannoles_tpu_torch import bench
+
+    value, summ, dt = bench.run_config(lm_bench_family(torch.float32, cuda), "pallas", 256, None, torch.float32, reps=1)
+    assert summ["solved"] >= 0.99 * 256 and value == pytest.approx(256 / dt)
+    sps, sps_dev, solved, mfu, dt = bench.run_ba_rung(reps=1, device=cuda, scenes=16)
+    assert solved == "16/16" and (sps_dev is None) == (mfu is None)
+    ms, ms_dev, ms_bf16, mfu, status, err = bench.run_large_rung(cuda, 1024, 128, reps=1)
+    assert status == 1 and err <= 1e-3 and ms > 0
