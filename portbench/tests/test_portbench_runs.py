@@ -1,0 +1,174 @@
+"""Whole runs of the harness: the result line's keys, no result without a
+card, the reference against the program's solve on the CPU, the control and
+the planted faults coming out not correct, and the reduction of a trace."""
+
+from __future__ import annotations
+
+import json
+from types import SimpleNamespace
+
+import pytest
+import torch
+from conftest import run_cell
+
+from portbench.common.trace import Slice
+
+ROSEN_CELLS = ["rosen_con.sweep65536", "rosen_con.sweep4096", "rosen_con.single"]
+ALL_CELLS = ROSEN_CELLS + ["dense_fit.m10240"]
+
+
+def _last(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("workload", ALL_CELLS)
+def test_result_line_has_the_contract_keys(small_root, workload):
+    rc, out, err = run_cell(small_root, workload)
+    assert rc == 0, err[-3000:]
+    res = _last(out)
+    assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
+    assert res["correct"] is True, err[-2000:]
+    assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    names = {"setup_s", "instances_per_s"} if "sweep" in workload else {"setup_s", "solve_ms", "solve_p95_ms"}
+    assert set(res["metrics"]) == names
+    assert all(set(m) == {"value", "unit"} and m["value"] > 0 for m in res["metrics"].values())
+    assert res["attempted"] > 0 and res["failed"] == 0
+    tail = err.strip().splitlines()[-len(res["checks"]):]
+    assert [line.split()[1] for line in tail] == list(res["checks"])
+
+
+def test_no_card_no_result(small_root):
+    rc, out, err = run_cell(small_root, "rosen_con.single", card=True)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    assert rc != 0 and out.strip() == "" and "no result" in err
+
+
+def _controls(workload, where=None):
+    """The controls of the cell's configuration (``where``: those that
+    stand the reference or the program in the program's place)."""
+    from portbench.common.manifest import Manifest
+    from conftest import REPO
+
+    controls = Manifest(REPO).cell(workload).config["controls"]
+    return [(workload, name) for name, c in controls.items() if where is None or where in c]
+
+
+@pytest.mark.parametrize("workload,control", [c for w in ALL_CELLS for c in _controls(w, "reference")])
+def test_control_is_not_correct(small_root, workload, control):
+    # the program's own lower-precision paths run IEEE on the CPU; the card
+    # test below runs them
+    rc, out, err = run_cell(small_root, workload, control=control)
+    assert rc == 0, err[-3000:]
+    res = _last(out)
+    assert res["correct"] is False, res["checks"]
+
+
+def test_reduced_precision_kernels_are_told_by_name():
+    from portbench.common.tensor_cores import PATTERN
+
+    ieee = ["sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x64x8_stage3_warpsize2x2x1_ffma_aligna4_alignc4"
+            "_execute_kernel__5x_cublas", "void gemv2T_kernel_val<int, int, float, float, float, float, 128, 16, 4, "
+            "4, false, false>", "void kernel<getrf_wo_pivot_params_<float, 0, 256, 1, 64, 64, 68, 8, 1, 1> >",
+            "memcpy128", "ldlt_thread_per_system", "void at::native::elementwise_kernel<128, 2>"]
+    reduced = ["sm90_xmma_gemm_f32f32_tf32f32_f32_tn_n_tilesize128x128x32_warpgroupsize1x1x1_execute_segment_k_off",
+               "cutlass_80_tensorop_s1688gemm_128x128_32x3_nn_align4",
+               "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize64x128x64_warpgroupsize1x1x1"]
+    assert not any(PATTERN.search(n) for n in ieee)
+    assert all(PATTERN.search(n) for n in reduced)
+
+
+@pytest.mark.parametrize("workload,fault", [
+    (w, f) for w in ALL_CELLS for f in ("state_unchanged", "answer_altered")
+] + [(w, "half_batch") for w in ROSEN_CELLS if "sweep" in w])
+def test_planted_fault_is_not_correct(small_root, workload, fault):
+    rc, out, err = run_cell(small_root, workload, fault=fault)
+    assert rc == 0, err[-3000:]
+    assert _last(out)["correct"] is False, _last(out)["checks"]
+
+
+def test_reference_agrees_with_a_cpu_solve():
+    from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
+
+    from portbench.common import draws
+    from portbench.common.manifest import Manifest
+    from conftest import REPO
+
+    cell = Manifest(REPO).cell("rosen_con.sweep4096")
+    cfg = dict(cell.config, dtype="float64")
+    fam, ref = cell.family(), cell.reference()
+    item = fam.draw(cfg, draws.generator(7, "cpu"), 1, 64, "cpu")[0]
+    pb = fam.problem(cfg, "cpu")
+    s = CaNNOLeSSolver(pb, dtype=torch.float64, device="cpu", **cfg["solver"])
+    st = vsolve(pb, item["x0"], data_batch=item["data"], solver=s, max_iter=50, rescue=True).states
+    out = dict(x=st.x, r=st.r, lam=st.lam, status=st.status)
+    numbers = ref.judge([(item, out)], cfg)
+    assert numbers["unsolved_pct"] == 0 and numbers["kkt_ratio"] <= 1.0
+    mine = ref.solve(item)
+    assert ref.judge([(item, mine)], cfg)["kkt_ratio"] < 1e-3
+    same = (mine["x"] - st.x).abs().amax(-1) < 1e-3  # lanes where both found one stationary point
+    assert int(same.sum()) >= 32  # the family has two minima in many lanes
+    assert torch.allclose(mine["x"][same], st.x[same], atol=1e-6)
+
+
+def test_dense_reference_agrees_with_a_cpu_solve():
+    from cannoles_tpu_torch import CaNNOLeSSolver
+
+    from portbench.common import draws
+    from portbench.common.manifest import Manifest
+    from conftest import REPO
+
+    cell = Manifest(REPO).cell("dense_fit.m10240")
+    cfg = dict(cell.config, dtype="float64", nequ=512, nvar=64)
+    fam, ref = cell.family(), cell.reference()
+    g = draws.generator(11, "cpu")
+    shared = fam.shared_inputs(cfg, g, "cpu")
+    item = fam.draw(cfg, g, 1, 1, "cpu", shared)[0]
+    s = CaNNOLeSSolver(fam.problem(cfg, "cpu", shared), dtype=torch.float64, device="cpu", **cfg["solver"])
+    st = s.run(item["x0"], s.problem.y0.expand(1, 0), s.make_config(max_iter=30), item["data"])
+    numbers = ref.judge([(item, dict(x=st.x, r=st.r, status=st.status))], cfg, shared)
+    assert numbers["unsolved_pct"] == 0 and numbers["kkt_ratio"] <= 1.0 and numbers["x_err"] < 1e-6
+
+
+def test_trace_reduction():
+    # device operations at 0-10 and 30-40 us inside a slice of 0-100 us; the
+    # host in a vsolve call from 0 to 60, synchronizing from 60 to 100
+    sl = Slice(window_s=1e-4, busy_s=2e-5, device_ops=[("k1", 0.0, 10.0), ("k2", 30.0, 40.0)],
+               host_spans=[("slice", 0.0, 100.0), ("vsolve", 0.0, 60.0), ("synchronize", 60.0, 100.0)],
+               outputs=[], calls=1)
+    assert sl.op_seconds() == [("k1", 1e-5), ("k2", 1e-5)]
+    assert sl.idle_gaps((0.0, 100.0)) == [("vsolve", 6e-5), ("vsolve", 2e-5)]
+
+
+def test_metric_readers_read_nothing_where_nothing_is_there():
+    from portbench.common.manifest import Manifest
+    from conftest import REPO
+
+    cell = Manifest(REPO).cell("rosen_con.sweep65536")
+    ctx = SimpleNamespace(calls=0, solves=0, host_syncs=0, counters={}, slice=None, config=cell.config,
+                          peaks=None, log=print)
+    for m in Manifest(REPO).data["per_layer"]:
+        assert cell.reader(m["name"]).read(ctx) is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ALL_CELLS)
+def test_control_on_the_card_at_the_cell_size(card, workload):
+    """Each control at the cell's own size on the card fails the committed
+    limits, and the program on the same seed meets them."""
+    from portbench.common.manifest import Manifest
+    from portbench.tests.readings import readings
+    from conftest import REPO
+
+    from cannoles_tpu_torch.ops import _native
+
+    _native.load()
+    cell = Manifest(REPO).cell(workload)
+    checks = cell.config["checks"]
+
+    def ok(numbers):
+        return all(numbers[k] is not None and numbers[k] <= c["limit"] for k, c in checks.items())
+
+    assert ok(readings(cell, card, 5_000_000_017)["numbers"])
+    for _, control in _controls(workload):
+        assert not ok(readings(cell, card, 5_000_000_017, control=control)["numbers"]), control
