@@ -43,6 +43,7 @@ from ..params import F_BLOWUP, MAX_DLAMBDA, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_2, norm_inf
 from ..utils.precision import matmul_mode, scoped
+from ..utils.spans import count_check, span
 from ..utils.prng import rademacher
 from ..parallel.mesh import row_block
 from .solver import CaNNOLeSSolver, RunConfig, _add_batch_axis, _BudgetSpent, _sel
@@ -117,11 +118,11 @@ def _cg(matvec: Callable, b, itmax: int, rtol: float, any_fn: Callable, minv=Non
 
     The loop condition is the JAX package's, ``k < itmax``, ‖res‖² > tol²
     and a finite γ, evaluated on the card every iteration; a lane whose
-    condition fails stops updating.  ``any_fn`` reads it on the host every
-    ``CG_CHECK`` iterations.  Convergence is judged on the true residual,
-    with or without ``minv`` (r ↦ M⁻¹r).  A non-positive curvature pᵀAp
-    sets γ = inf, so the attempt reads as failed.  Lanes outside ``active``
-    do not iterate."""
+    condition fails stops updating.  ``any_fn(mask, site)`` reads it on the
+    host every ``CG_CHECK`` iterations.  Convergence is judged on the true
+    residual, with or without ``minv`` (r ↦ M⁻¹r).  A non-positive
+    curvature pᵀAp sets γ = inf, so the attempt reads as failed.  Lanes
+    outside ``active`` do not iterate."""
     nb = norm_2(b)
     tol2 = (rtol * nb) ** 2
     apply_m = (lambda r: r) if minv is None else minv
@@ -133,7 +134,7 @@ def _cg(matvec: Callable, b, itmax: int, rtol: float, any_fn: Callable, minv=Non
     inf = torch.full_like(gamma, float("inf"))
     for it in range(itmax):
         go = run & (k < itmax) & (res2 > tol2) & torch.isfinite(gamma)
-        if it % CG_CHECK == 0 and not any_fn(go):
+        if it % CG_CHECK == 0 and not any_fn(go, "matfree.cg"):
             break
         q = matvec(p)
         den = _vdot(p, q)
@@ -244,16 +245,19 @@ class MatrixFreeSolver:
         self.host_syncs = 0
         self._deadline: Optional[float] = None
 
-    def _any(self, mask) -> bool:
-        """One host sync (counted in ``host_syncs``): whether any lane of
-        ``mask`` is set; inside ``solve()`` also the wall-clock budget."""
+    def _any(self, mask, site: str) -> bool:
+        """One host sync (counted in ``host_syncs`` and, process-wide, at
+        ``check:<site>``): whether any lane of ``mask`` is set; inside
+        ``solve()`` also the wall-clock budget."""
         self.host_syncs += 1
-        hit = bool(mask.any())
-        if self._deadline is not None:
-            # on a row mesh every rank leaves the step at the same sync
-            hit, spent = self._agree(hit, time.time() > self._deadline)
-            if spent:
-                raise _BudgetSpent
+        with span("cannoles.check", {"segment": site}):
+            hit = bool(mask.any())
+            count_check(site, hit)
+            if self._deadline is not None:
+                # on a row mesh every rank leaves the step at the same sync
+                hit, spent = self._agree(hit, time.time() > self._deadline)
+                if spent:
+                    raise _BudgetSpent
         return hit
 
     _agree = CaNNOLeSSolver._agree
@@ -376,12 +380,12 @@ class MatrixFreeSolver:
         k = 0
         while True:
             go = act if k == 0 else act & (~c.success) & (c.rho <= pr.rho_max)
-            if not self._any(go):
+            if not self._any(go, "matfree.ladder"):
                 break
             keff = k + k_shift
             rho = zero if keff == 0 else (first_rho if keff == 1 else c.rho * inc)
             do = go & (rho <= pr.rho_max)
-            if self._any(do):
+            if self._any(do, "matfree.attempt"):
                 sol_t, suc_t, kcg = attempt(rho, do)
             else:
                 sol_t, suc_t, kcg = c.sol, torch.zeros_like(do), torch.zeros((B,), **i32)
@@ -508,7 +512,7 @@ class MatrixFreeSolver:
         ls_lanes = act & (~not_descent) & (~is_extrap)
         while True:
             go = ls_lanes & (~fail) & (phit > phix + pr.gamma_A * alpha * Dphi)
-            if not self._any(go):
+            if not self._any(go, "matfree.ls"):
                 break
             alpha_n = alpha / 4
             xt_n = s.x + alpha_n[:, None] * dx
@@ -609,17 +613,18 @@ class MatrixFreeSolver:
         while True:
             conv = (c.ch <= 0.99 * combined + c.s.epsk) | c.tired
             go = active & (c.first | ~conv) & (~c.s.broken)
-            if not self._any(go):
+            if not self._any(go, "matfree.inner"):
                 break
             s = c.s
             # skip the solve right after a failed extrapolation (the
             # inner_iter == 1 quirk of the reference)
             do_solve = go & ((s.inner_iter != 1) | self.always_accept_extrapolation)
-            if self._any(do_solve):
+            if self._any(do_solve, "matfree.solve"):
                 s = _sel_state(do_solve, self._solve_system(s, do_solve), s)
             ok = go & (~s.broken)
             c_broken = _InnerCarry(s, c.ndh, c.nph, c.ch, torch.zeros_like(c.first), c.tired)
-            c_new = self._inner_ok(c._replace(s=s), combined, cfg, ok) if self._any(ok) else c_broken
+            c_new = (self._inner_ok(c._replace(s=s), combined, cfg, ok) if self._any(ok, "matfree.ok")
+                     else c_broken)
             c_new = _InnerCarry(_sel_state(ok, c_new.s, s),
                                 *[_sel(ok, a, b) for a, b in zip(c_new[1:], c_broken[1:])])
             c = _InnerCarry(_sel_state(go, c_new.s, c.s),
@@ -640,7 +645,7 @@ class MatrixFreeSolver:
         small_residual = (2 * torch.sqrt(s.fx) <= s.epsF) & (norm_2(s.cx) <= s.epsc)
         s = s._replace(first_order=first_order, small_residual=small_residual)
         recheck = active & small_residual & ~first_order
-        if self._any(recheck):
+        if self._any(recheck, "matfree.recheck"):
             # small-residual optimality re-check, with operators
             r = s.Fx
             Jxtr = self._rsum(pb.jtprod_res(s.x, r, data))

@@ -27,6 +27,11 @@ changes no result).
 
 The kernel launch counters of ``ops`` count at capture time, where nothing
 runs, so a capture records what it launched and each replay adds it.
+``counters()`` also reads the host-sync counts of ``utils/spans.py``.
+Each run of a segment is a span, ``cannoles.replay``, ``cannoles.capture``
+or ``cannoles.eager``, with the segment's name in its args; the bank keeps
+the name of its last segment (``Bank.last``), whose flags the next host
+check reads.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ from __future__ import annotations
 import time
 
 import torch
+
+from ..utils import spans
+from ..utils.spans import span
 
 __all__ = ["Bank", "GraphCaptureError", "run_segment", "clone_tree", "load", "counters", "restore_counters"]
 
@@ -53,6 +61,7 @@ class Bank:
         self._graphed = route == "graph"
         self._host_reads = route == "eager"
         self._label = label
+        self.last = None  # the name of the segment that ran last
         self._pool = pool if pool is not None else [None]
         self._graphs: dict = {}
         # the buffers of a run's data by id, which no segment writes: every
@@ -146,7 +155,11 @@ def load(bank: Bank, adopt=(), **entries):
 
 
 def counters() -> dict:
-    """The custom kernels' launch counters, by name."""
+    """The process's counters: the custom kernels' launches by name (and
+    the fused LDLT kernel's by (N, B, dtype) under ``("fused_ldlt", shape)``),
+    and the counts of ``utils/spans.py``: ``"host_syncs"``, their sum, and
+    ``("host_syncs", site)``, ``("all_false", site)`` and ``("rescue_lanes",
+    stage)``."""
     from ..ops import block_chol, fused_ldlt
 
     return {
@@ -154,10 +167,13 @@ def counters() -> dict:
         "chol_fused": block_chol.FUSED_LAUNCHES,
         "chol_block": block_chol.BLOCK_LAUNCHES,
         **{("fused_ldlt", k): n for k, n in fused_ldlt.BY_SHAPE.items()},
+        "host_syncs": sum(spans.SYNCS.values()),
+        **{(kind, k): n for kind, d in spans.COUNTS.items() for k, n in d.items()},
     }
 
 
 def _credit(delta: dict):
+    """Add a replayed graph's launches (``_capture``'s delta)."""
     from ..ops import block_chol, fused_ldlt
 
     for k, n in delta.items():
@@ -167,19 +183,23 @@ def _credit(delta: dict):
             block_chol.FUSED_LAUNCHES += n
         elif k == "chol_block":
             block_chol.BLOCK_LAUNCHES += n
-        else:
+        elif k[0] == "fused_ldlt":
             fused_ldlt.BY_SHAPE[k[1]] = fused_ldlt.BY_SHAPE.get(k[1], 0) + n
 
 
 def restore_counters(before: dict):
-    """Put the launch counters back to ``counters()``'s reading."""
+    """Put the counters back to ``counters()``'s reading."""
     from ..ops import block_chol, fused_ldlt
 
     fused_ldlt.LAUNCHES = before["fused_ldlt"]
     block_chol.FUSED_LAUNCHES = before["chol_fused"]
     block_chol.BLOCK_LAUNCHES = before["chol_block"]
-    fused_ldlt.BY_SHAPE.clear()
-    fused_ldlt.BY_SHAPE.update({k[1]: n for k, n in before.items() if isinstance(k, tuple)})
+    by_kind = {"fused_ldlt": fused_ldlt.BY_SHAPE, **spans.COUNTS}
+    for d in by_kind.values():
+        d.clear()
+    for k, n in before.items():
+        if isinstance(k, tuple):
+            by_kind[k[0]][k[1]] = n
 
 
 class _Graph:
@@ -225,13 +245,18 @@ def _capture(bank: Bank, name: str, fn) -> _Graph:
 
 def run_segment(bank: Bank, name: str, fn, eager: bool = False):
     """Run one segment ``fn(bank) -> {entry: value}`` on the bank's route."""
+    bank.last = name
     if not bank._graphed:
-        bank.__dict__.update(fn(bank))
+        with span("cannoles.eager", {"segment": name}):
+            bank.__dict__.update(fn(bank))
         return
     g = bank._graphs.get(name)
     if g is not None:
-        g.replay()
+        with span("cannoles.replay", {"segment": name}):
+            g.replay()
         return
-    _store(bank, fn(bank))  # the first run, eager: it also warms the libraries up
+    with span("cannoles.eager", {"segment": name}):
+        _store(bank, fn(bank))  # the first run, eager: it also warms the libraries up
     if not eager:
-        bank._graphs[name] = _capture(bank, name, fn)
+        with span("cannoles.capture", {"segment": name}):
+            bank._graphs[name] = _capture(bank, name, fn)

@@ -74,6 +74,7 @@ from ..params import F_BLOWUP, MAX_DLAMBDA, SMAX, Params
 from ..problem import NLSProblem
 from ..utils.linalg import check_nan_inf, norm_1, norm_2, norm_inf
 from ..utils.precision import check_mode, critical_matmul, gate_eps, matmul_mode, scoped
+from ..utils.spans import count_check, span
 from .segments import Bank, _leaves, clone_tree, counters, load, restore_counters, run_segment
 from .status import MSG, ExecutionStats, Status, get_status_code, status_name
 
@@ -705,7 +706,7 @@ class CaNNOLeSSolver:
             run_segment(t, f"attempt:{kind}:{kk}", self._attempt_seg(kind, kk),
                       eager=kind == "eigh" or self.linsolve == "eigh")
             k += 1
-            if not self._check(t.flags)[0]:
+            if not self._check(t)[0]:
                 return
 
     @staticmethod
@@ -728,7 +729,7 @@ class CaNNOLeSSolver:
         the lanes of ``t.do_solve``, after the first attempt (whose flags
         the first check reads): the rho ladder around the primary backend,
         then the fallback ladders.  Leaves the result in ``t.lad_c``."""
-        if self._check(t.flags)[0]:
+        if self._check(t)[0]:
             self._ladder(t, "main", 1)
         self._fallback_ladders(t, descent=True)
 
@@ -749,7 +750,7 @@ class CaNNOLeSSolver:
                 return dict(lad_c=self._merge(out, out2, need, need & (out2.success | (~out.success))))
 
             run_segment(t, "rf_prep", rf_prep)
-            if self._check(t.flags)[0]:
+            if self._check(t)[0]:
                 self._ladder(t, "eigh")
             run_segment(t, "rf_merge", rf_merge)
         if descent and self.descent_rescue and not self.quality_gate:
@@ -765,7 +766,7 @@ class CaNNOLeSSolver:
                 return dict(lad_c=self._merge(out, outg, bad, take))
 
             run_segment(t, "dr_prep", dr_prep)
-            if self._check(t.flags)[0]:
+            if self._check(t)[0]:
                 self._ladder(t, "gated")
             run_segment(t, "dr_merge", dr_merge)
 
@@ -777,7 +778,8 @@ class CaNNOLeSSolver:
         t = Bank("eager", self.problem.name)
         t.W0, t.rhs, t.do_solve, t.s = W0, rhs, active, SimpleNamespace(rho_old=rho_old)
         t.__dict__.update(self._ladder_start(rho_old, rhs, active))
-        if self._check(_flags(active))[0]:
+        t.flags, t.last = _flags(active), "newton_system"
+        if self._check(t)[0]:
             self._ladder(t, "main")
         self._fallback_ladders(t, descent=False)
         out = t.lad_c
@@ -909,16 +911,17 @@ class CaNNOLeSSolver:
     def _init(self, t):
         """Init on the bank's x0, lam0, cfg and data: ``t.s`` and ``t.nxt``;
         returns whether any lane is left to solve."""
-        run_segment(t, "init", self._seg_init)
-        re, nxt = self._check(t.flags)
-        if re:
-            def recheck_init(t):
-                s = self._recheck(t.mask, t.s_pre, t._host_reads)
-                out = self._finish_init(s, t.mask, t.cfg)
-                return dict(s=out["s"], nxt=out["nxt"], flags=_flags(out["nxt"]))
+        with span("cannoles.init"):
+            run_segment(t, "init", self._seg_init)
+            re, nxt = self._check(t)
+            if re:
+                def recheck_init(t):
+                    s = self._recheck(t.mask, t.s_pre, t._host_reads)
+                    out = self._finish_init(s, t.mask, t.cfg)
+                    return dict(s=out["s"], nxt=out["nxt"], flags=_flags(out["nxt"]))
 
-            run_segment(t, "recheck_init", recheck_init)
-            nxt = self._check(t.flags)[0]
+                run_segment(t, "recheck_init", recheck_init)
+                nxt = self._check(t)[0]
         return nxt
 
     def _init_state(self, x0, lam0, cfg: RunConfig, data=None) -> SolverState:
@@ -1239,22 +1242,23 @@ class CaNNOLeSSolver:
         """One outer iteration for the lanes of ``t.nxt`` (the others keep
         their state); returns whether any lane is left to solve.  With
         ``debug_print`` (and ``rows``) it prints the iteration's rows."""
-        run_segment(t, "outer_pre", self._seg_outer_pre)
-        go, do_solve = self._check(t.flags)
-        while go:
-            if do_solve:
-                run_segment(t, "solve0", self._seg_solve0, eager=self.linsolve == "eigh")
-                self._newton_system_segments(t)
-            run_segment(t, "trial:solved" if do_solve else "trial", self._trial_seg(do_solve))
-            while self._check(t.flags)[0]:
-                run_segment(t, "ls", self._seg_ls)
-            run_segment(t, "accept", self._seg_accept)
-            go, do_solve = self._check(t.flags)
-        run_segment(t, "outer_post", self._seg_outer_post)
-        re, nxt = self._check(t.flags)
-        if re:
-            run_segment(t, "recheck_outer", self._seg_recheck_outer)
-            nxt = self._check(t.flags)[0]
+        with span("cannoles.outer"):
+            run_segment(t, "outer_pre", self._seg_outer_pre)
+            go, do_solve = self._check(t)
+            while go:
+                if do_solve:
+                    run_segment(t, "solve0", self._seg_solve0, eager=self.linsolve == "eigh")
+                    self._newton_system_segments(t)
+                run_segment(t, "trial:solved" if do_solve else "trial", self._trial_seg(do_solve))
+                while self._check(t)[0]:
+                    run_segment(t, "ls", self._seg_ls)
+                run_segment(t, "accept", self._seg_accept)
+                go, do_solve = self._check(t)
+            run_segment(t, "outer_post", self._seg_outer_post)
+            re, nxt = self._check(t)
+            if re:
+                run_segment(t, "recheck_outer", self._seg_recheck_outer)
+                nxt = self._check(t)[0]
         if self.debug_print and rows:
             self._debug_rows(t)
         return nxt
@@ -1314,16 +1318,19 @@ class CaNNOLeSSolver:
             return s
         return clone_tree(s._replace(data=None))._replace(data=data)
 
-    def _check(self, flags) -> list:
-        """A host check: read a segment's flags (one sync, counted in
-        ``host_syncs``) and, inside ``solve()``, the wall-clock budget."""
+    def _check(self, t) -> list:
+        """A host check: read the flags of the bank's last segment (one
+        sync, counted in ``host_syncs`` and, process-wide, at
+        ``check:<segment>``) and, inside ``solve()``, the wall-clock budget."""
         self.host_syncs += 1
-        vals = flags.tolist()
-        if self._deadline is not None:
-            # on a row mesh every rank leaves the step at the same check
-            *vals, spent = self._agree(*vals, time.time() > self._deadline)
-            if spent:
-                raise _BudgetSpent
+        with span("cannoles.check", {"segment": t.last}):
+            vals = t.flags.tolist()
+            count_check(t.last, any(vals))
+            if self._deadline is not None:
+                # on a row mesh every rank leaves the step at the same check
+                *vals, spent = self._agree(*vals, time.time() > self._deadline)
+                if spent:
+                    raise _BudgetSpent
         return vals
 
     def graph_replays(self) -> dict:
@@ -1343,13 +1350,14 @@ class CaNNOLeSSolver:
         """Solve a batch to the end: x0 (B, n), lam0 (B, p), data leaves
         with a leading B axis (or None).  Counterpart of the JAX
         ``_run_compiled`` under vmap."""
-        t = self._bank(x0.shape[0], data)
-        load(t, x0=x0.to(dtype=self.dtype, device=self.device),
-             lam0=lam0.to(dtype=self.dtype, device=self.device), cfg=cfg, data=data)
-        more = self._init(t)
-        while more:
-            more = self._outer(t)
-        return self._result(t.s, data)
+        with span("cannoles.run", {"B": x0.shape[0], "route": self.route}):
+            t = self._bank(x0.shape[0], data)
+            load(t, x0=x0.to(dtype=self.dtype, device=self.device),
+                 lam0=lam0.to(dtype=self.dtype, device=self.device), cfg=cfg, data=data)
+            more = self._init(t)
+            while more:
+                more = self._outer(t)
+            return self._result(t.s, data)
 
     # ------------------------------------------------------------------
     # host-driven solve (callbacks, wall-clock limit, logging)

@@ -24,6 +24,8 @@ rows only where ``row_block`` chose the local residual
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import time
 import warnings
 from typing import Any, Dict, Optional, Union
@@ -42,6 +44,7 @@ from ..core.status import Status
 from ..ops.fused_ldlt import max_n
 from ..problem import NLSProblem
 from ..utils.convert import tree_to_torch
+from ..utils.spans import count_read, count_rescue, span
 from .mesh import Mesh, Mesh2D, make_batch_mesh, make_mesh_2d, row_block_batch
 
 __all__ = ["vsolve", "BatchResult", "make_batch_mesh", "make_mesh_2d"]
@@ -79,8 +82,7 @@ class BatchResult:
         return self.states.normdual.cpu().numpy()
 
     def solved_mask(self) -> np.ndarray:
-        st = self.status
-        return (st == Status.FIRST_ORDER) | (st == Status.SMALL_RESIDUAL)
+        return _solved(self.status)
 
     def summary(self) -> Dict[str, Any]:
         st = self.status
@@ -111,6 +113,23 @@ def _concat_states(parts, data):
     )
 
 
+# vsolve calls since the process started: each call's number
+_CALLS = itertools.count()
+
+
+def _spanned(fn):
+    """``vsolve`` as the span ``cannoles.vsolve``, with B, the requested
+    ``chunk_size`` and the call's number in the process."""
+    @functools.wraps(fn)
+    def call(problem, x0_batch, *args, **kwargs):
+        with span("cannoles.vsolve", {"call": next(_CALLS), "B": len(x0_batch),
+                                      "chunk_size": kwargs.get("chunk_size") or 0}):
+            return fn(problem, x0_batch, *args, **kwargs)
+
+    return call
+
+
+@_spanned
 def vsolve(
     problem: NLSProblem,
     x0_batch,
@@ -171,6 +190,10 @@ def vsolve(
     to the reference's (max_eval=100000, max_inner=10000).  Under
     ``max_time`` the rescue runs only while budget remains, and only on
     lanes that were dispatched.
+
+    Each call is a span ``cannoles.vsolve`` (``utils/spans.py``) with B,
+    ``chunk_size`` and the call's number in the process; the spans of its
+    chunks (``cannoles.chunk``, k of K), runs and rescue lie inside it.
     """
     problem.validate_for_solve()
     rows = None
@@ -255,9 +278,10 @@ def vsolve(
         parts = []
         for lo in range(0, B, chunk_size):
             sl = slice(lo, lo + chunk_size)
-            parts.append(
-                solver.run(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl))
-            )
+            with span("cannoles.chunk", {"k": lo // chunk_size, "of": B // chunk_size, "lanes": chunk_size}):
+                parts.append(
+                    solver.run(x0_batch[sl], lam0_batch[sl], cfg, _tree_index(data_batch, sl))
+                )
         states = _concat_states(parts, data_batch)
     else:
         states = solver.run(x0_batch, lam0_batch, cfg, data_batch)
@@ -334,8 +358,8 @@ def _rescue_unsolved(
         max_inner=torch.tensor(10000, dtype=torch.int32, device=dev),
     )
 
-    def _pass(res, sibling, only=None):
-        bad = ~res.solved_mask()
+    def _pass(res, sibling, stage, only=None):
+        bad = ~_solved(_status(res))
         if eligible is not None:
             bad &= eligible
         if only is not None:
@@ -343,14 +367,16 @@ def _rescue_unsolved(
         idx_np = np.nonzero(bad)[0]
         if idx_np.size == 0:
             return res
-        idx = torch.as_tensor(idx_np, device=dev)
-        sub = sibling.run(
-            x0_batch[idx], lam0_batch[idx], cfg, _tree_index(data_batch, idx)
-        )
-        full = res.states
-        merged = full._replace(
-            **{f: getattr(full, f).index_copy(0, idx, getattr(sub, f)) for f in TENSOR_FIELDS}
-        )
+        count_rescue(stage, idx_np.size)
+        with span(_STAGE_SPANS[stage], {"lanes": idx_np.size}):
+            idx = torch.as_tensor(idx_np, device=dev)
+            sub = sibling.run(
+                x0_batch[idx], lam0_batch[idx], cfg, _tree_index(data_batch, idx)
+            )
+            full = res.states
+            merged = full._replace(
+                **{f: getattr(full, f).index_copy(0, idx, getattr(sub, f)) for f in TENSOR_FIELDS}
+            )
         return BatchResult(states=merged, solver=res.solver)
 
     cache = solver.__dict__.setdefault("_rescue_siblings", {})
@@ -388,16 +414,33 @@ def _rescue_unsolved(
             cache[kind] = sib
         return sib
 
-    budget_lanes = np.isin(
-        result.status, (int(Status.STALLED), int(Status.MAX_ITER), int(Status.MAX_EVAL))
-    )
-    if budget_lanes.any():
-        result = _pass(result, solver, only=budget_lanes)
-    if not skip_stage1:
-        result = _pass(result, _sibling("gated"))
-    if (~result.solved_mask()).any():
-        result = _pass(result, _sibling("eigh"))
+    with span("cannoles.rescue", {"B": len(x0_batch)}):
+        budget_lanes = np.isin(
+            _status(result), (int(Status.STALLED), int(Status.MAX_ITER), int(Status.MAX_EVAL))
+        )
+        if budget_lanes.any():
+            result = _pass(result, solver, "stage0", only=budget_lanes)
+        if not skip_stage1:
+            result = _pass(result, _sibling("gated"), "stage1")
+        if (~_solved(_status(result))).any():
+            result = _pass(result, _sibling("eigh"), "stage2")
     return result
+
+
+_STAGE_SPANS = {"stage0": "cannoles.rescue.stage0", "stage1": "cannoles.rescue.stage1",
+                "stage2": "cannoles.rescue.stage2"}
+
+
+def _status(res: BatchResult) -> np.ndarray:
+    """The lanes' statuses read on the host for the rescue: one sync, a span
+    ``cannoles.host_read`` counted at ``rescue.status``."""
+    with span("cannoles.host_read"):
+        count_read("rescue.status")
+        return res.status
+
+
+def _solved(status: np.ndarray) -> np.ndarray:
+    return (status == Status.FIRST_ORDER) | (status == Status.SMALL_RESIDUAL)
 
 
 def _vsolve_deadline(solver, x0_batch, lam0_batch, data_batch, cfg, chunk_size, max_time):

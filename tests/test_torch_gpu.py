@@ -592,6 +592,49 @@ def test_graph_route_equals_eager_route_at_b48_on_card(cuda):
     assert la == lb > 0 and ba == bb and sum(ba.values()) == la
 
 
+def test_spans_on_the_graph_route_on_card(cuda):
+    """The spans of ``utils/spans.py`` on the graph route: a sweep of the
+    headline family with its cap and rescue, warm, then in a profiler
+    session.  The session holds ``cannoles.replay`` and the rescue's spans,
+    no device-side ``cannoles.`` annotation (the spans are function events,
+    so the card's operations are its own), and the same bits as the call
+    before it; the process's host syncs are every solver's checks plus the
+    rescue's status reads."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cannoles_tpu_torch.core import segments
+
+    x0, d = lm_bench_batch(256, seed=0)
+    pb = lm_bench_family(torch.float32, cuda)
+    s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=cuda)
+
+    def call():
+        out = vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=cuda),
+                     data_batch=torch.as_tensor(d, dtype=torch.float32, device=cuda), solver=s,
+                     max_iter=50, max_eval=12, chunk_size=64, rescue=True)
+        torch.cuda.synchronize()
+        return out.states
+
+    call()
+    sibs = s.__dict__.get("_rescue_siblings", {})
+    syncs0 = s.host_syncs + sum(x.host_syncs for x in sibs.values())
+    c0 = segments.counters()
+    a = call()
+    c1 = segments.counters()
+    syncs = s.host_syncs + sum(x.host_syncs for x in sibs.values()) - syncs0
+    reads = c1[("host_syncs", "rescue.status")] - c0[("host_syncs", "rescue.status")]
+    assert reads >= 2 and c1["host_syncs"] - c0["host_syncs"] == syncs + reads
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        b = call()
+    _bits_equal(a, b)
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() != DeviceType.CUDA and e.name().startswith("cannoles.")}
+    assert {"cannoles.vsolve", "cannoles.chunk", "cannoles.run", "cannoles.replay", "cannoles.check",
+            "cannoles.rescue", "cannoles.rescue.stage0", "cannoles.host_read"} <= host
+    assert not [e.name() for e in events if e.device_type() == DeviceType.CUDA and e.name().startswith("cannoles.")]
+
+
 def test_graph_route_raises_on_a_residual_with_host_data(cuda):
     """A residual that builds a tensor from host data at every call cannot
     be captured: the graph route raises ``GraphCaptureError`` naming the
