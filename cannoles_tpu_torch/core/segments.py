@@ -40,6 +40,7 @@ import time
 
 import torch
 
+from ..ops import bank_copy
 from ..utils import spans
 from ..utils.spans import span
 
@@ -122,8 +123,11 @@ def _store(bank: Bank, upd: dict, capturing: bool = False, adopt=()):
     already the bank's (one buffer per data leaf, whatever entries carry
     it), and an entry named in ``adopt`` is taken by reference: its tensors
     become the buffers.  A source that shares storage with a buffer written
-    here is copied first, so that every entry gets the value the segment
-    computed, whatever the order of the copies."""
+    here is read before it is written, so that every entry gets the value
+    the segment computed, whatever the order of the copies: the copies go
+    through ``ops/bank_copy.py``, one batched launch for the whole store on
+    a card (two when aliased sources must be staged), ``copy_`` for what it
+    does not fold."""
     pairs = []
     for k, v in upd.items():
         cur = bank.__dict__.get(k)
@@ -136,10 +140,7 @@ def _store(bank: Bank, upd: dict, capturing: bool = False, adopt=()):
             bank._shared.update((id(x), x) for x in _data_leaves(k, bank.__dict__[k]))
             continue
         pairs += [(d, s) for d, s in zip(old, new) if d is not s and not _same_memory(d, s)]
-    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
-    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in written else s) for d, s in pairs]
-    for d, s in pairs:
-        d.copy_(s)
+    bank_copy.store(pairs)
 
 
 def load(bank: Bank, adopt=(), **entries):
@@ -157,9 +158,11 @@ def load(bank: Bank, adopt=(), **entries):
 def counters() -> dict:
     """The process's counters: the custom kernels' launches by name (and
     the fused LDLT kernel's by (N, B, dtype) under ``("fused_ldlt", shape)``),
-    and the counts of ``utils/spans.py``: ``"host_syncs"``, their sum, and
-    ``("host_syncs", site)``, ``("all_false", site)`` and ``("rescue_lanes",
-    stage)``."""
+    the bank stores' batched copies (``"bank_copy"``, launches, and
+    ``("bank_copy", "entries")`` and ``("bank_copy", "left")``, the pairs
+    folded into them and left to ``copy_``), and the counts of
+    ``utils/spans.py``: ``"host_syncs"``, their sum, and ``("host_syncs",
+    site)``, ``("all_false", site)`` and ``("rescue_lanes", stage)``."""
     from ..ops import block_chol, fused_ldlt
 
     return {
@@ -167,13 +170,16 @@ def counters() -> dict:
         "chol_fused": block_chol.FUSED_LAUNCHES,
         "chol_block": block_chol.BLOCK_LAUNCHES,
         **{("fused_ldlt", k): n for k, n in fused_ldlt.BY_SHAPE.items()},
+        "bank_copy": bank_copy.LAUNCHES,
+        **{("bank_copy", k): n for k, n in bank_copy.COUNTS.items()},
         "host_syncs": sum(spans.SYNCS.values()),
         **{(kind, k): n for kind, d in spans.COUNTS.items() for k, n in d.items()},
     }
 
 
 def _credit(delta: dict):
-    """Add a replayed graph's launches (``_capture``'s delta)."""
+    """Add a replayed graph's launches and copied pairs (``_capture``'s
+    delta)."""
     from ..ops import block_chol, fused_ldlt
 
     for k, n in delta.items():
@@ -183,6 +189,10 @@ def _credit(delta: dict):
             block_chol.FUSED_LAUNCHES += n
         elif k == "chol_block":
             block_chol.BLOCK_LAUNCHES += n
+        elif k == "bank_copy":
+            bank_copy.LAUNCHES += n
+        elif k[0] == "bank_copy":
+            bank_copy.COUNTS[k[1]] += n
         elif k[0] == "fused_ldlt":
             fused_ldlt.BY_SHAPE[k[1]] = fused_ldlt.BY_SHAPE.get(k[1], 0) + n
 
@@ -194,7 +204,8 @@ def restore_counters(before: dict):
     fused_ldlt.LAUNCHES = before["fused_ldlt"]
     block_chol.FUSED_LAUNCHES = before["chol_fused"]
     block_chol.BLOCK_LAUNCHES = before["chol_block"]
-    by_kind = {"fused_ldlt": fused_ldlt.BY_SHAPE, **spans.COUNTS}
+    bank_copy.LAUNCHES = before["bank_copy"]
+    by_kind = {"fused_ldlt": fused_ldlt.BY_SHAPE, "bank_copy": bank_copy.COUNTS, **spans.COUNTS}
     for d in by_kind.values():
         d.clear()
     for k, n in before.items():

@@ -48,6 +48,11 @@ _SOURCES = {
         name: [_P, _P, _P, _P, _I, _I, _I, _D, _P]
         for name in ("cannoles_chol_f32", "cannoles_chol_f64")
     },
+    "bank_copy.cu": {
+        "cannoles_bank_copy": [_P, _I, _I, _P],
+        "cannoles_bank_copy_cap": [],
+        "cannoles_bank_copy_stage_bytes": [],
+    },
 }
 
 _LOCK = threading.Lock()

@@ -94,7 +94,26 @@ also before the pool, whose workers would share the host it measures:
    lane ``first_order``.  The LDLᵀ kernel's and the fused Cholesky
    kernel's counters, set to 0 before the phase, must rise.
 
-Phase 23 (the routes' peak device memory) runs after phase 21, before the
+Phase 25 (the bank store's batched copy, ``ops/bank_copy.py``) runs after
+phase 21, before the pool, since it times the card:
+
+25. the kernel against its plain version on ``COPY_LAYOUTS``'s random
+   stores (``utils.testing.copy_layout``: six dtypes, offsets off 16-byte
+   alignment, sources sharing memory with destinations, strided sources;
+   the one-block path, the grid path, staging, more entries than a launch
+   takes): the card's pool equal bit for bit to the CPU's and to the
+   expected bytes, one launch counted per launch of the plan on the card;
+   the counters, zeroed just before it, over a fresh headline-family
+   graph-route ``vsolve`` at each B of ``COPY_SOLVE_B`` (the rescue on):
+   launches counted, and at least ``COPY_ENGAGEMENT_BAR`` of the pairs
+   folded; the first ``outer_post`` store of a headline-family ``vsolve``
+   at each B of ``COPY_STORE_B`` (``bench_copy.store_row``): the kernel,
+   the plain version and PyTorch's multi-tensor copy leave the same bytes
+   on copies of the pairs' storages, and each is timed inside a captured
+   graph (device ms a store, CUDA events).  The size sweep behind
+   ``CUT_BYTES`` is ``python -m cannoles_tpu_torch.bench_copy --cut``.
+
+Phase 23 (the routes' peak device memory) runs after phase 25, before the
 pool:
 
 23. ``large_rung_problem(m, 1024)`` (float32, Gauss–Newton, condensed,
@@ -2516,6 +2535,92 @@ def peak_memory(dev, draws=4):
 # 33.5 MB, 268 MB and 1.07 GB), and the most that the graph route's peak
 # allocated memory may exceed the eager route's (ROADMAP queue 3 C1: 1.85x
 # at m = 8,192 on an H100 80GB HBM3 at 700 W before the bank shared its data)
+# phase 25: random stores (seed, entries, largest numel) over the kernel's
+# paths, as the card test; the batches of the headline family's graph-route
+# vsolves whose engagement is read (a B = 1 solve; a sweep's chunk with its
+# rescue); the batches whose outer_post store is checked and timed
+COPY_LAYOUTS = ((0, 20, 8), (1, 60, 40), (2, 150, 30), (3, 40, 3000), (4, 100, 40_000), (5, 300, 4_000))
+COPY_SOLVE_B = (1, 4096)
+COPY_STORE_B = (1, 16_384)
+COPY_ENGAGEMENT_BAR = 0.95
+
+
+def _copy_engagement(dev, B):
+    """The batched copy's counters over one headline-family ``vsolve`` at B on
+    the graph route (a fresh solver: its captures and replays), zeroed just
+    before it."""
+    from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
+    from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
+    from cannoles_tpu_torch.ops import bank_copy
+
+    x0, d = lm_bench_batch(B, seed=B)
+    pb = lm_bench_family(torch.float32, dev)
+    s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=dev)
+    bank_copy.LAUNCHES = 0
+    bank_copy.COUNTS.update(entries=0, left=0)
+    vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=dev),
+           data_batch=torch.as_tensor(d, dtype=torch.float32, device=dev), solver=s,
+           max_iter=50, max_eval=48, rescue=True)
+    torch.cuda.synchronize()
+    c = dict(B=B, launches=bank_copy.LAUNCHES, **bank_copy.COUNTS)
+    c["engagement"] = c["entries"] / max(c["entries"] + c["left"], 1)
+    return c
+
+
+def phase_bank_copy(dev, layouts=COPY_LAYOUTS, solves=COPY_SOLVE_B, batches=COPY_STORE_B):
+    """Phase 25: the bank store's batched copy.  The kernel against its
+    plain version on random stores (bit for bit, one launch counted per
+    launch of the plan on the card, none for the plain version on the CPU);
+    the counters over a headline-family graph-route ``vsolve`` at each B of
+    ``solves`` (launches counted, engagement at least
+    ``COPY_ENGAGEMENT_BAR``); and the ``outer_post`` store at each B of
+    ``batches`` (``bench_copy.store_row``): the kernel, the plain version
+    and PyTorch's multi-tensor copy leave the same bytes, and each is timed
+    inside a captured graph."""
+    from cannoles_tpu_torch import bench_copy
+    from cannoles_tpu_torch.ops import bank_copy
+    from cannoles_tpu_torch.utils.testing import copy_expected, copy_layout, copy_pairs
+
+    out = dict(plans=0, layouts=[])
+    bank_copy.LAUNCHES = 0
+    for seed, n, max_numel in layouts:
+        pool, other, entries = copy_layout(seed, n, max_numel)
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            tp, to = torch.as_tensor(pool, device=where).clone(), torch.as_tensor(other, device=where).clone()
+            pairs = copy_pairs(entries, tp, to)
+            if where.type == "cuda":
+                plan, left = bank_copy.plan(pairs, {bank_copy._storage(d) for d, _ in pairs})
+            bank_copy.store(pairs)
+            got[where.type] = tp.cpu().numpy()
+        torch.cuda.synchronize()
+        if not (np.array_equal(got["cuda"], got["cpu"]) and np.array_equal(got["cuda"], copy_expected(entries, pool, other))):
+            raise AssertionError(f"phase 25: the batched copy differs from its plain version on layout {seed}")
+        out["plans"] += len(plan)
+        out["layouts"].append(dict(seed=seed, entries=n, bytes=int(pool.size), launches=len(plan),
+                                   one_block=sum(o for o, _ in plan), left=len(left)))
+    out["launches"] = bank_copy.LAUNCHES
+    if out["launches"] != out["plans"]:
+        raise AssertionError(f"phase 25: {out['launches']} launches counted for {out['plans']} planned on the card")
+    _log(f"  kernel == plain version on {len(layouts)} random stores, {out['launches']} launches counted: "
+         f"{out['layouts']}")
+
+    out["solves"] = [_copy_engagement(dev, B) for B in solves]
+    _log(f"  graph-route vsolves: {out['solves']}")
+    bad = [c for c in out["solves"] if c["launches"] <= 0 or c["engagement"] < COPY_ENGAGEMENT_BAR]
+    if bad:
+        raise AssertionError(f"phase 25: the batched copy launched too little or folded under "
+                             f"{COPY_ENGAGEMENT_BAR:.0%} of the pairs: {bad}")
+
+    out["stores"] = [bench_copy.store_row(dev, B) for B in batches]
+    for row in out["stores"]:
+        _log(f"  outer_post store at B = {row['B']}: {row}")
+    if not all(row["equal"] for row in out["stores"]):
+        raise AssertionError("phase 25: the outer_post store's bytes differ between the kernel, the plain "
+                             "version and the multi-tensor copy")
+    return out
+
+
 MEMORY_ROWS = (8192, 65536, 262144)
 MEMORY_RATIO_BAR = 1.25
 
@@ -2768,6 +2873,9 @@ def main() -> int:
         raise AssertionError(f"phase 21: the headline launched the fused LDLT kernel {fl.LAUNCHES} times and "
                              f"the chol batch the Cholesky kernel {bc.FUSED_LAUNCHES} times")
 
+    _phase("phase 25: the bank store's batched copy (kernel vs plain version, engagement, outer_post stores)")
+    copies = phase_bank_copy(dev)
+
     _phase("phase 23: peak device memory of the graph and eager routes, large_rung_problem(m, 1024) at m = "
            + ", ".join(f"{m:,}" for m in MEMORY_ROWS))
     memory = phase_memory(dev)
@@ -2888,6 +2996,12 @@ def main() -> int:
         # phase 22: bench_chol's rows at N = 2048, 4096 (f32, nb = 128, blocked route)
         "launches_bench_chol": entries["bench_chol"]["launches"][1],
         "bench_chol": [_chol_row(r) for r in entries["bench_chol"]["rows"] if r["route"] == "blocked"],
+    }, {
+        "name": "bank_copy",
+        "route": "cuda",
+        "source": "cannoles_tpu_torch/csrc/bank_copy.cu",
+        "replaces": None,  # no TPU kernel: the graph route's copy of a segment's outputs
+        **copies,
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},

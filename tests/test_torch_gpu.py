@@ -592,6 +592,91 @@ def test_graph_route_equals_eager_route_at_b48_on_card(cuda):
     assert la == lb > 0 and ba == bb and sum(ba.values()) == la
 
 
+@pytest.mark.parametrize("seed,n,max_numel", [(0, 20, 8), (1, 60, 40), (2, 150, 30), (3, 40, 3000),
+                                              (4, 100, 40_000), (5, 300, 4_000)],
+                         ids=["tiny", "one_block", "above_cap", "staged", "grid", "grid_above_cap"])
+def test_bank_copy_kernel_bit_equal_to_plain_on_card(cuda, seed, n, max_numel):
+    """``ops/bank_copy.py``'s kernel on random stores (``copy_layout``: six
+    dtypes, offsets off 16-byte alignment, sources sharing memory with
+    destinations, strided sources left to ``copy_``): the card's pools after
+    the store equal the plain version's on the CPU and the expected bytes,
+    on the one-block path, above the cap, staged and on the grid path; one
+    launch counted per launch of the plan on the card, none for the plain
+    version."""
+    from cannoles_tpu_torch.ops import bank_copy
+    from cannoles_tpu_torch.utils.testing import copy_expected, copy_layout, copy_pairs
+
+    pool, other, entries = copy_layout(seed, n, max_numel)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tp, to = torch.as_tensor(pool, device=dev).clone(), torch.as_tensor(other, device=dev).clone()
+        pairs = copy_pairs(entries, tp, to)
+        plan, _ = bank_copy.plan(pairs, {bank_copy._storage(d) for d, _ in pairs})
+        l0 = bank_copy.LAUNCHES
+        bank_copy.store(pairs)
+        assert bank_copy.LAUNCHES - l0 == (len(plan) if dev.type == "cuda" else 0) and plan
+        out[dev.type] = (tp.cpu().numpy(), to.cpu().numpy())
+    assert np.array_equal(out["cuda"][0], out["cpu"][0]) and np.array_equal(out["cuda"][1], other)
+    assert np.array_equal(out["cuda"][0], copy_expected(entries, pool, other))
+
+
+def _copy_counts():
+    from cannoles_tpu_torch.core import segments
+
+    c = segments.counters()
+    return np.array([c["bank_copy"], c[("bank_copy", "entries")], c[("bank_copy", "left")]])
+
+
+@pytest.mark.parametrize("B", [1, 72, 16384])
+def test_graph_route_equals_eager_route_with_the_batched_copy_on_card(cuda, B):
+    """The headline family (float32, LM, full KKT, the fused LDLᵀ kernel,
+    the rescue) at B = 1, the rescue's size and a chunk's: every lane
+    bit-equal between the routes while the graph route's stores go through
+    the batched copy (entries folded, launches counted per replay), and the
+    eager route copies nothing."""
+    x0, d = lm_bench_batch(B, seed=B)
+    runs = []
+    for route in ("graph", "eager"):
+        pb = lm_bench_family(torch.float32, cuda)
+        s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=cuda)
+        if route == "eager":
+            _eager(s)
+        c0 = _copy_counts()
+        res = vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=cuda),
+                     data_batch=torch.as_tensor(d, dtype=torch.float32, device=cuda), solver=s,
+                     max_iter=50, max_eval=48, rescue=True)
+        torch.cuda.synchronize()
+        runs.append((res.states, _copy_counts() - c0))
+    (a, ca), (b, cb) = runs
+    _bits_equal(a, b)
+    assert ca[0] > 0 and ca[1] > 0 and ca[1] >= 0.95 * (ca[1] + ca[2]), ca
+    assert not cb.any(), cb
+
+
+def test_graph_route_equals_eager_route_condensed_chol_with_the_batched_copy_on_card(cuda):
+    """The large rung (8,192 x 1,024 float32, Gauss–Newton, condensed,
+    ``chol``) solved on both routes: bit-equal states and statistics; its
+    J-sized copies, above ``CUT_BYTES``, stay on ``copy_``, the rest fold."""
+    from cannoles_tpu_torch.models.families import large_rung_problem
+    from cannoles_tpu_torch.ops import bank_copy
+
+    pb = large_rung_problem(dtype=torch.float32, device=cuda)[0]
+    runs = []
+    for route in ("graph", "eager"):
+        s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol", dtype=torch.float32)
+        if route == "eager":
+            _eager(s)
+        c0 = _copy_counts()
+        st = s.solve(max_iter=30, max_time=600.0)
+        torch.cuda.synchronize()
+        runs.append((s, st, _copy_counts() - c0))
+    (g, a, ca), (e, b, cb) = runs
+    assert a.status == "first_order" and (a.status, a.iter, a.solver_specific) == (b.status, b.iter, b.solver_specific)
+    _bits_equal(g.last_state, e.last_state)
+    assert ca[1] > 0 and ca[2] > 0 and not cb.any(), ca
+    assert 8192 * 1024 * 4 > bank_copy.CUT_BYTES
+
+
 def test_spans_on_the_graph_route_on_card(cuda):
     """The spans of ``utils/spans.py`` on the graph route: a sweep of the
     headline family with its cap and rescue, warm, then in a profiler
