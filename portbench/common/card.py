@@ -1,5 +1,7 @@
 """The card a run uses: the check for the chips a cell asks for, the
-card's name and power limit, and the process's age (for ``setup_s``)."""
+card's name and power limit, and the seconds since a process started (for
+``setup_s``: a rank of a cell on several cards counts from the start of the
+process that started it)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import subprocess
 
 import torch
 
-__all__ = ["NoCard", "require", "kind", "power_limit", "process_age_s"]
+__all__ = ["NoCard", "require", "kind", "power_limit", "process_start_s", "since"]
 
 
 class NoCard(RuntimeError):
@@ -47,11 +49,20 @@ def power_limit(device: torch.device):
     return out.stdout.strip().splitlines()[device.index or 0].strip()
 
 
-def process_age_s() -> float:
-    """Seconds since this process started, from ``/proc``: the kernel's
-    start time of the process, to its clock tick."""
+def _uptime_s() -> float:
+    with open("/proc/uptime") as f:
+        return float(f.read().split()[0])
+
+
+def process_start_s() -> float:
+    """When this process started, in seconds of the system's uptime, from
+    ``/proc``: the kernel's start time of the process, to its clock tick."""
     with open("/proc/self/stat") as f:
         start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
-    with open("/proc/uptime") as f:
-        uptime = float(f.read().split()[0])
-    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+    return start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def since(start_s: float) -> float:
+    """Seconds from ``start_s`` (a ``process_start_s()``, also another
+    process's) to now."""
+    return _uptime_s() - start_s

@@ -27,16 +27,22 @@ def generator(seed: int, device) -> torch.Generator:
     return g
 
 
-def order(bank: list, seed: int) -> list:
+def order(bank: list, seed: int, blocks: int = 1) -> list:
     """The inputs of ``bank`` in an order drawn from ``seed``, and the lanes
     of each (the leading axis of every tensor of an input) too; drawn on the
-    host, so that a seed gives one order on every device."""
+    host, so that a seed gives one order on every device.  ``blocks``: the
+    lanes move only inside each of that many equal contiguous blocks (one
+    rank's lanes on a mesh of that many ranks)."""
     g = torch.Generator().manual_seed(int(seed) % (1 << 63))
     out = []
     for k in torch.randperm(len(bank), generator=g).tolist():
         item = bank[k]
-        lanes = torch.randperm(item["x0"].shape[0], generator=g).to(item["x0"].device)
-        out.append(_take(item, lanes))
+        B = item["x0"].shape[0]
+        if B % blocks:
+            raise ValueError(f"{B} lanes do not split into {blocks} equal blocks")
+        w = B // blocks
+        lanes = torch.cat([torch.randperm(w, generator=g) + j * w for j in range(blocks)])
+        out.append(_take(item, lanes.to(item["x0"].device)))
     return out
 
 

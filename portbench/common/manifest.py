@@ -8,6 +8,8 @@ A cell ``<config>.<traffic>`` resolves to
 * ``portbench/reference/<config>.py``: its plain float64 reference;
 * ``portbench/traffic/<traffic>.json``: the mix's parameters, read by the
   one generator of ``common/mix.py``;
+* ``portbench/entries/<entry>.py``: the call into the program that the mix
+  names by its ``entry``;
 * ``portbench/metrics/<quantity>.py``: the reader of a per-layer metric
   ``<quantity>`` or ``<quantity>.<split>`` (one quantity split by the
   end-to-end metric it moves, as ``device_idle_pct.sweep`` and
@@ -15,8 +17,11 @@ A cell ``<config>.<traffic>`` resolves to
 
 Every per-layer entry lists the cells that report it (``workloads``).
 
-A later configuration, mix or metric is a new file under its name and a new
-entry in ``BENCHMARK.json``; nothing here changes.
+A cell whose ``chips`` is above 1 runs as that many ranks, one per card
+(``common/ranks.py``).
+
+A later configuration, mix, entry or metric is a new file under its name
+and a new entry in ``BENCHMARK.json``; nothing here changes.
 """
 
 from __future__ import annotations
@@ -64,6 +69,11 @@ class Cell:
         """The configuration's plain reference (``reference/<config>.py``)."""
         return load_module(self.root / "portbench" / "reference" / f"{self.config_name}.py",
                            f"portbench_reference_{self.config_name}")
+
+    def entry(self):
+        """The module of the mix's entry (``entries/<entry>.py``)."""
+        name = self.traffic["entry"]
+        return load_module(self.root / "portbench" / "entries" / f"{name}.py", f"portbench_entry_{name}")
 
     def reader(self, metric: str):
         """The reader of one per-layer metric (``metrics/<quantity>.py``,

@@ -4,8 +4,10 @@ the traced slice, in percent.
 The least time for the work the inputs needed, over the device time of the
 kernel's launches in the slice (the profiler's operations named in
 ``KERNELS``).  The work is one N x N factor-solve per factorization that the
-returned lanes count (``nfact``, summed over the slice's outputs; N = n + m
-+ p for the full KKT system, n + p for the condensed one): bytes count the
+returned lanes count (``nfact``, summed over the slice's outputs and over
+the lanes that rank 0 solved, ``ctx.lanes``: every lane on one card, the
+first of k blocks on k; N = n + m + p for the full KKT system, n + p for
+the condensed one): bytes count the
 matrix and the right-hand side read once and the solution and the pivots
 written once, (N^2 + 3N) items; operations N^3 / 3 + 2 N^2.  The least time
 is the larger of bytes over the card's HBM bandwidth and operations over its
@@ -33,7 +35,7 @@ def read(ctx):
     if sl is None or peaks is None:
         return None
     kernel_s = sum(e - s for name, s, e in sl.device_ops if any(k in name for k in KERNELS)) / 1e6
-    nfact = sum(int(out["nfact"].sum()) for out in sl.outputs)
+    nfact = sum(int(out["nfact"][ctx.lanes].sum()) for out in sl.outputs)
     if kernel_s <= 0 or nfact == 0:
         return None
     nbytes, flops = work(ctx.config)

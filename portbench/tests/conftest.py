@@ -4,7 +4,8 @@
 (the same files, with smaller batches, banks and dense sizes), with the
 program linked in, and ``run_cell`` to run one cell of it in a child
 process on the CPU, the harness's look for a card replaced, optionally with
-a fault planted in the program first.  ``card``: the first CUDA device, or
+a fault planted in the program first (in each rank's process, for a cell on
+several cards: its ranks run on the CPU over gloo).  ``card``: the first CUDA device, or
 the test skips; decided inside the fixture, never at import.
 """
 
@@ -32,20 +33,26 @@ SMALL = [
     ("traffic/m10240.json", "bank", 4), ("traffic/single.json", "slice_calls", 4),
     ("traffic/m10240.json", "slice_calls", 4), ("configs/rosen_con.json", "straggler_from_batch", 128),
     ("configs/dense_fit.json", "nequ", 256), ("configs/dense_fit.json", "nvar", 32),
+    ("traffic/sweep102400.mesh4.json", "batch", 128), ("traffic/sweep102400.mesh4.json", "bank", 2),
 ]
 
+# the ranks of a cell on several cards start by ``spawn``, which imports this
+# script again: the run lies under the ``__main__`` check
 DRIVE = textwrap.dedent('''
     import json, pathlib, sys
     import torch
     root = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
-    spec = json.loads(sys.argv[1])
-    if spec.get("fault"):
-        from portbench.tests import faults
-        getattr(faults, spec["fault"])()
-    from portbench.common import harness
-    require = None if spec.get("card") else (lambda chips: torch.device("cpu"))
-    sys.exit(harness.main(spec["argv"], root=root, require=require, control=spec.get("control")))
+    if __name__ == "__main__":
+        spec = json.loads(sys.argv[1])
+        prepare = None
+        if spec.get("fault"):
+            from portbench.tests import faults
+            prepare = getattr(faults, spec["fault"])
+        from portbench.common import harness
+        require = None if spec.get("card") else (lambda chips: torch.device("cpu"))
+        sys.exit(harness.main(spec["argv"], root=root, require=require, control=spec.get("control"),
+                              prepare=prepare))
 ''')
 
 

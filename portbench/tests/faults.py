@@ -11,10 +11,24 @@ process that runs the harness; none is ever planted by a benchmark run.
 * ``rescue_skipped``: ``vsolve`` runs without its rescue, so the lanes that
   the straggler cap stopped come back unsolved.
 
-The exchange between chips has no fault here: every cell runs on one card.
+Faults of a cell on several ranks (planted in every rank's process; each
+acts on the rank it names):
+
+* ``rank_answer_altered``: rank 1 moves its first lane's x by 5% of its size
+  before the gather, so every rank holds the altered lane.
+* ``exchange_skipped``: the gather is left out: each rank keeps its own
+  lanes and zeros for the others'.
+* ``rank_copy_altered``: rank 2 moves lane 0's x in its own copy of the
+  gathered batch, so its outputs differ from rank 0's.
+* ``stats_off``: ``batch_convergence_stats`` counts one solved lane too
+  many.
+* ``rank_raises``: rank 1 raises in its third ``vsolve`` call.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import itertools
 
 import torch
 
@@ -68,6 +82,80 @@ def rescue_skipped():
 
     def vsolve(*args, **kw):
         kw["rescue"] = False
+        return orig(*args, **kw)
+
+    batch.vsolve = vsolve
+    cannoles_tpu_torch.vsolve = vsolve
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _moved(st):
+    x = st.x.clone()
+    x[0] += 5e-2 * (1 + x[0].abs())
+    return st._replace(x=x)
+
+
+def rank_answer_altered():
+    from cannoles_tpu_torch.parallel import batch
+
+    orig = batch._gather_lanes
+
+    def gather(part, mesh, B, lanes, data):
+        return orig(_moved(part) if _rank() == 1 else part, mesh, B, lanes, data)
+
+    batch._gather_lanes = gather
+
+
+def exchange_skipped():
+    from cannoles_tpu_torch.parallel import batch
+
+    orig = batch._gather_lanes
+
+    def gather(part, mesh, B, lanes, data):
+        alone = dataclasses.replace(mesh, ranks=(mesh.ranks[mesh.rank],), rank=0)
+        return orig(part, alone, B, lanes, data)
+
+    batch._gather_lanes = gather
+
+
+def rank_copy_altered():
+    from cannoles_tpu_torch.parallel import batch
+
+    orig = batch._gather_lanes
+
+    def gather(part, mesh, B, lanes, data):
+        st = orig(part, mesh, B, lanes, data)
+        return _moved(st) if _rank() == 2 else st
+
+    batch._gather_lanes = gather
+
+
+def stats_off():
+    from cannoles_tpu_torch.parallel import multihost
+
+    orig = multihost.batch_convergence_stats
+
+    def stats(states, mesh):
+        out = orig(states, mesh)
+        return dict(out, solved=out["solved"] + 1)
+
+    multihost.batch_convergence_stats = stats
+
+
+def rank_raises():
+    import cannoles_tpu_torch
+    from cannoles_tpu_torch.parallel import batch
+
+    orig, calls = batch.vsolve, itertools.count()
+
+    def vsolve(*args, **kw):
+        if _rank() == 1 and next(calls) == 2:
+            raise RuntimeError("planted: rank 1 raises in its third vsolve call")
         return orig(*args, **kw)
 
     batch.vsolve = vsolve

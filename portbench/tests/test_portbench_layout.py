@@ -30,7 +30,10 @@ def test_every_entry_resolves_by_name():
         assert NAME.match(w) and cell.config["name"] == cell.config_name
         fam, ref = cell.family(), cell.reference()
         assert callable(fam.draw) and callable(fam.problem) and callable(ref.judge)
-        assert cell.traffic["entry"] in ("vsolve", "run")
+        entry = cell.entry()
+        assert callable(entry.Entry) and callable(entry.Entry.call)
+        if hasattr(entry, "judge"):
+            assert set(entry.LIMITS) <= set(entry.judge([]))
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"} and len(cell.end_to_end) >= 2
         assert cell.per_layer
         for m in cell.per_layer:
@@ -111,6 +114,23 @@ def test_a_pool_is_the_same_work_in_the_seed_s_order():
         assert torch.equal(x["x0"] % 10, x["data"])
 
 
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_on_k_cards_each_rank_keeps_its_lanes(blocks):
+    """On k cards the seed moves lanes only inside each rank's block, so
+    every rank solves the same lanes of each input on every seed."""
+    pool = [dict(x0=torch.arange(16.0)[:, None] + 100 * k, data=torch.arange(16.0)[:, None]) for k in range(3)]
+    a, c = draws.order(pool, 2**40 + 1, blocks), draws.order(pool, 2**40 + 2, blocks)
+    assert any(not torch.equal(x["x0"], y["x0"]) for x, y in zip(a, c))
+    w = 16 // blocks
+    for x in a + c:
+        src = pool[int(x["x0"][0, 0]) // 100]["x0"]
+        assert torch.equal(x["x0"] % 100, x["data"])
+        for j in range(blocks):
+            assert sorted(x["x0"][j * w:(j + 1) * w, 0].tolist()) == src[j * w:(j + 1) * w, 0].tolist()
+    with pytest.raises(ValueError, match="equal blocks"):
+        draws.order(pool, 1, 3)
+
+
 def test_forbidden_modules_compare_whole_top_level_names():
     assert guard.forbidden_modules(["cannoles_tpu_torch", "cannoles_tpu_torch.core", "jaxtyping"]) == []
     assert guard.forbidden_modules(["cannoles_tpu.core.solver", "jax.numpy", "flax"]) == [
@@ -121,8 +141,10 @@ def test_the_harness_and_program_load_no_jax():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import portbench.common.harness, "
             "portbench.common.mix, portbench.tests.readings, cannoles_tpu_torch; "
             "from portbench.common.manifest import Manifest; m = Manifest(sys.argv[1]); "
-            "[(c.family(), c.reference(), [c.reader(x['name']) for x in c.per_layer]) "
+            "[(c.family(), c.reference(), [c.reader(x['name']) for x in c.per_layer], "
+            "c.entry()) "
             "for c in map(m.cell, m.workloads())]; "
+            "import portbench.common.ranks, portbench.tests.faults; "
             "from portbench.common.guard import forbidden_modules; print(forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -140,6 +140,19 @@ def test_trace_reduction():
     assert sl.idle_gaps((0.0, 100.0)) == [("vsolve", 6e-5), ("vsolve", 2e-5)]
 
 
+def test_a_slice_that_captures_gives_no_result(capsys):
+    """A traced slice that captured a graph read another path than the
+    window's: no result, and the run exits nonzero."""
+    from portbench.common.harness import EXIT_CAPTURED, report
+
+    outcome = {"forbidden": [], "slice_capture_s": 0.25, "lines": ["check x 0 limit 1"], "result": {"correct": True}}
+    assert report(outcome) == EXIT_CAPTURED
+    out, err = capsys.readouterr()
+    assert out == "" and "graph captures inside the traced slice 0.250 s" in err
+    assert report(dict(outcome, slice_capture_s=0.0)) == 0
+    assert json.loads(capsys.readouterr().out) == {"correct": True}
+
+
 def test_metric_readers_read_nothing_where_nothing_is_there():
     from portbench.common.manifest import Manifest
     from conftest import REPO
@@ -172,3 +185,79 @@ def test_control_on_the_card_at_the_cell_size(card, workload):
     assert ok(readings(cell, card, 5_000_000_017)["numbers"])
     for _, control in _controls(workload):
         assert not ok(readings(cell, card, 5_000_000_017, control=control)["numbers"]), control
+
+
+def _same_bits(a, b) -> bool:
+    """Whether two tensors, or dicts of them, hold the same bits."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    return (a.dtype, a.shape) == (b.dtype, b.shape) and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("workload", ALL_CELLS)
+def test_the_built_in_entries_make_the_same_calls(small_root, workload):
+    """The ``vsolve`` and ``run`` entries (``entries/``) and the bank's
+    order give the bits of the calls the generator made before entries were
+    kept in files (``frozen_mix.py``), on the same draws."""
+    from frozen_mix import FrozenMix
+
+    from portbench.common.manifest import Manifest
+    from portbench.common.mix import Mix
+
+    cell = Manifest(small_root).cell(workload)
+    ref, cpu, seed = cell.reference(), torch.device("cpu"), 4_000_000_321
+    old, new = FrozenMix(cell, cpu, seed, reference=ref), Mix(cell, cpu, seed, reference=ref)
+    assert new.batch == old.batch and len(new.bank) == len(old.bank) == cell.traffic["bank"]
+    for a, b in zip(old.bank, new.bank):
+        assert _same_bits(a, b)
+        oa, ob = old.call(a), new.call(b)
+        assert oa.keys() == ob.keys() == {"x", "r", "lam", "status", "nfact"}
+        for k in oa:
+            assert _same_bits(oa[k], ob[k]), k
+
+
+ENTRY = '''
+import torch
+
+
+class Entry:
+    def __init__(self, mix, options):
+        from cannoles_tpu_torch import CaNNOLeSSolver
+
+        self.mix = mix
+        self.problem = mix.family.problem(mix.cfg, mix.device, mix.shared)
+        self.solver = CaNNOLeSSolver(self.problem, dtype=getattr(torch, mix.cfg["dtype"]), device=mix.device,
+                                     **options)
+
+    def call(self, item):
+        from cannoles_tpu_torch import vsolve
+
+        st = vsolve(self.problem, item["x0"], data_batch=item["data"], solver=self.solver,
+                    max_iter=int(self.mix.cfg["max_iter"]), rescue=True).states
+        return dict(x=st.x, r=st.r, lam=st.lam, status=st.status, nfact=st.nfact)
+'''
+
+
+def test_a_new_entry_file_runs_without_an_edit(small_root):
+    """An entry of its own (``entries/<entry>.py``) and a mix that names it
+    run to a result line, with new files and new entries in
+    ``BENCHMARK.json`` alone."""
+    pb = small_root / "portbench"
+    before = {p: p.read_bytes() for p in pb.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+    (pb / "entries" / "vsolve_whole.py").write_text(ENTRY)
+    (pb / "traffic" / "whole48.json").write_text(json.dumps(
+        {"entry": "vsolve_whole", "batch": 48, "bank": 2, "pool_seed": 0, "slice_calls": 1}))
+    man = json.loads((small_root / "BENCHMARK.json").read_text())
+    man["workloads"].append({"name": "rosen_con.whole48", "config": "rosen_con", "traffic": "whole48",
+                             "chips": 1, "why": "w"})
+    next(m for m in man["end_to_end"] if m["name"] == "instances_per_s")["workloads"].append("rosen_con.whole48")
+    next(m for m in man["per_layer"] if m["name"] == "launches_per_call.sweep")["workloads"].append(
+        "rosen_con.whole48")
+    (small_root / "BENCHMARK.json").write_text(json.dumps(man))
+    assert all(p.read_bytes() == b for p, b in before.items())
+    rc, out, err = run_cell(small_root, "rosen_con.whole48")
+    assert rc == 0, err[-3000:]
+    res = _last(out)
+    assert res["correct"] is True and res["attempted"] % 48 == 0, res
+    assert set(res["metrics"]) == {"setup_s", "instances_per_s"}
