@@ -22,8 +22,30 @@ the step's relative residual on the exact operator is at most
 η = max(10·cg_rtol, 0.1).  Everything else, the outer loop, the ρ ladder
 and the statuses, is :class:`~cannoles_tpu_torch.core.matfree.MatrixFreeSolver`'s.
 
+On an observation list (``data["cam_idx"]``, ``data["pt_idx"]``, the
+residual the raveled (n_obs, 2) reprojections, as
+:func:`cannoles_tpu_torch.models.bal.bal_problem` builds it) no grid is
+formed: cameras of cd = 6 or 9 parameters (read from the layout),
+per-observation blocks A (n_obs, 2, cd), Bm (n_obs, 2, 3) and
+W = AᵀBm (n_obs, cd, 3), U and V summed over each camera's and each
+point's observations, and S = blockdiag(U) + Dc − Σₚ Σ_{i,j ∈ obs(p)}
+X_i W_jᵀ summed over the pairs of observations that share a point
+(``ops/schur_pairs.py``: the pairs listed once per observation structure,
+each lower-triangle block summed by one kernel launch on a card), then
+mirrored.  The back-substitution runs by the same sums, and so do the
+solver's products: J v = A v_c[cam_idx] + Bm v_p[pt_idx] and Jᵀw by the
+segment sums of Aᵀw and Bmᵀw, from the blocks at x, which every product
+and the assembly at one iterate share (:class:`_ListProducts`).  Every sum
+over observations is ``ops.schur_pairs.segment_sum`` or the pair kernel, in
+a fixed order, so a solve repeats bit for bit on a card.
+
+Spans ``cannoles.schur.blocks``, ``.assemble``, ``.factor``, ``.solve``
+and the counts ``("schur", "assemble" | "pairs")`` (``utils/spans.py``)
+cover both routes.
+
 Tensors keep the port's leading batch axis (a solve is B = 1); every
-einsum carries it as ``b``.
+einsum carries it as ``b``.  On a list every lane shares lane 0's
+observation structure.
 """
 
 from __future__ import annotations
@@ -34,16 +56,24 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vjp, vmap
 
+from ..ops import schur_pairs
 from ..params import Params
 from ..problem import NLSProblem
 from ..utils.linalg import norm_2
+from ..utils.spans import count_schur, span
 from .matfree import MatrixFreeSolver, MFState
 from .solver import _add_batch_axis, _cholesky_nan
 
 __all__ = ["SchurBASolver", "inv3x3_sym", "ba_block_jacobi"]
 
 
-def _project_default():
+def _project_default(cd: int = 6):
+    """The projection of cameras of ``cd`` parameters: the pinhole model of
+    ``models/ba_large.py`` (6) or Snavely's of ``models/bal.py`` (9)."""
+    if cd == 9:
+        from ..models.bal import snavely_project
+
+        return snavely_project
     from ..models.ba_large import project_point
 
     return project_point
@@ -64,6 +94,96 @@ def _obs_blocks(project, x, C: int, P: int):
     grid = vmap(vmap(vmap(jac_one, in_dims=(None, 0)), in_dims=(0, None)), in_dims=(0, 0))
     A, Bm = grid(cams, pts)
     return A.to(x.dtype), Bm.to(x.dtype)
+
+
+def _list_obs_blocks(project, x, C: int, P: int, cd: int, cam_idx, pt_idx):
+    """Per-observation Jacobian blocks on a list, x (B, cd·C + 3P):
+    A = ∂u/∂cam (B, n_obs, 2, cd) and Bm = ∂u/∂pt (B, n_obs, 2, 3), from one
+    forward-mode pass over each observation's camera and point."""
+    Bt = x.shape[0]
+    cams = x[:, : cd * C].reshape(Bt, C, cd)[:, cam_idx]
+    pts = x[:, cd * C:].reshape(Bt, P, 3)[:, pt_idx]
+
+    def jac_one(cam, pt):
+        J = jacfwd(lambda v: project(v[:cd], v[cd:]))(torch.cat([cam, pt]))
+        return J[:, :cd], J[:, cd:]
+
+    A, Bm = vmap(vmap(jac_one))(cams, pts)
+    return A.to(x.dtype), Bm.to(x.dtype)
+
+
+def _seg(values, index, n: int):
+    """``schur_pairs.segment_sum`` over axis 1 of (B, k, ...): (B, n, ...)."""
+    return schur_pairs.segment_sum(values.transpose(0, 1), index, n).transpose(0, 1)
+
+
+class _ListProducts:
+    """The list route's view of a problem: its products from the
+    per-observation blocks at x, everything else the problem's.
+
+    J v = A v_c[cam_idx] + Bm v_p[pt_idx], Jᵀw = (Σ_{obs of c} Aᵀw,
+    Σ_{obs of p} Bmᵀw), Jc v and Jcᵀw from the constraints' Jacobian on the
+    camera block.  The blocks (A masked by ``solver``'s frozen coordinates)
+    and Jc are worked out once per iterate and kept for the last ``KEEP``
+    iterates (held, so compared by identity), so the Schur assembly and
+    every product at one x share one forward pass."""
+
+    KEEP = 2
+
+    def __init__(self, problem: NLSProblem, solver: "SchurBASolver"):
+        self._pb, self._solver, self._kept = problem, solver, []
+
+    def __getattr__(self, name):
+        if name in ("_pb", "_solver", "_kept"):
+            raise AttributeError(name)
+        return getattr(self._pb, name)
+
+    def _at(self, x, data) -> dict:
+        for x_k, version, got in self._kept:
+            if x_k is x and version == x._version:
+                return got
+        sv = self._solver
+        ci, pi, _ = sv._structure(data)
+        A, Bm = _list_obs_blocks(sv.project, x, sv.C, sv.P, sv.cd, ci, pi)
+        if sv._cam_mask is not None:
+            A = A * sv._cam_mask[ci][None, :, None, :]
+        got = dict(A=A, Bm=Bm, ci=ci, pi=pi)
+        self._kept = [(x, x._version, got)] + self._kept[: self.KEEP - 1]
+        return got
+
+    def blocks(self, x, data):
+        """(A (B, n_obs, 2, cd), Bm (B, n_obs, 2, 3)) at x."""
+        got = self._at(x, data)
+        return got["A"], got["Bm"]
+
+    def cons_jacobian(self, x, data):
+        """Jc (B, p, cd·C) at x: the camera block's columns."""
+        got = self._at(x, data)
+        if "Jc" not in got:
+            got["Jc"] = _cons_jacobian(self._pb, x, data)[:, :, : self._solver.cd * self._solver.C]
+        return got["Jc"]
+
+    def jprod_res(self, x, v, data=None):
+        got, sv = self._at(x, data), self._solver
+        vc = v[:, : sv.cd * sv.C].reshape(v.shape[0], sv.C, sv.cd)[:, got["ci"]]
+        vp = v[:, sv.cd * sv.C:].reshape(v.shape[0], sv.P, 3)[:, got["pi"]]
+        Jv = torch.einsum("boki,boi->bok", got["A"], vc) + torch.einsum("boki,boi->bok", got["Bm"], vp)
+        return Jv.reshape(v.shape[0], -1)
+
+    def jtprod_res(self, x, w, data=None):
+        got, sv = self._at(x, data), self._solver
+        w = w.reshape(w.shape[0], -1, 2)
+        gc = _seg(torch.einsum("boki,bok->boi", got["A"], w), got["ci"], sv.C)
+        gp = _seg(torch.einsum("boki,bok->boi", got["Bm"], w), got["pi"], sv.P)
+        return torch.cat([gc.reshape(w.shape[0], -1), gp.reshape(w.shape[0], -1)], -1)
+
+    def jprod_cons(self, x, v, data=None):
+        Jc = self.cons_jacobian(x, data)
+        return torch.einsum("bkn,bn->bk", Jc, v[:, : Jc.shape[-1]])
+
+    def jtprod_cons(self, x, w, data=None):
+        Jc = self.cons_jacobian(x, data)
+        return torch.cat([torch.einsum("bkn,bk->bn", Jc, w), w.new_zeros((w.shape[0], x.shape[1] - Jc.shape[-1]))], -1)
 
 
 def _cons_jacobian(pb: NLSProblem, x, data):
@@ -174,15 +294,22 @@ class SchurBASolver(MatrixFreeSolver):
     """Gauss–Newton/LM bundle-adjustment solver with direct camera-Schur
     landmark elimination.
 
-    ``problem``: the BA problem (layout ``[cams (C, 6); pts (P, 3)]``, the
-    residual the raveled (C, P, 2) reprojection grid; build it with
-    :func:`cannoles_tpu_torch.models.ba_large.large_bundle_adjustment`).
-    ``n_cams``, ``n_pts``: C and P.  ``project``: the per-observation
-    projection ``(cam (6,), pt (3,)) -> (2,)`` (default: the pinhole model
-    of ``models/ba_large.py``).  Constraints may touch only the camera
-    block (gauge fixing).  ``frozen_cam_coords``: camera coordinates the
-    residual freezes (``gauge='fixed'``); their Jacobian columns are
-    masked to zero."""
+    ``problem``: the BA problem, layout ``[cams (C, cd); pts (P, 3)]``.  On
+    the grid route the residual is the raveled (C, P, 2) reprojection grid
+    (cd = 6; build it with
+    :func:`cannoles_tpu_torch.models.ba_large.large_bundle_adjustment`); on
+    the list route ``problem.data`` holds ``cam_idx`` and ``pt_idx``
+    (n_obs,) and the residual is the raveled (n_obs, 2) reprojections, cd = 6
+    or 9 read from the layout (build it with
+    :func:`cannoles_tpu_torch.models.bal.bal_problem`).  ``n_cams``,
+    ``n_pts``: C and P.  ``project``: the per-observation projection
+    ``(cam (cd,), pt (3,)) -> (2,)`` (default: the pinhole model of
+    ``models/ba_large.py`` for cd = 6, Snavely's of ``models/bal.py`` for
+    cd = 9).  Constraints may touch only the camera block (gauge fixing).
+    ``frozen_cam_coords``: camera coordinates the residual freezes
+    (``gauge='fixed'``); their Jacobian columns are masked to zero.
+    On a list the solver's ``problem`` is the given problem with its
+    products taken from the blocks (:class:`_ListProducts`)."""
 
     def __init__(
         self,
@@ -200,36 +327,72 @@ class SchurBASolver(MatrixFreeSolver):
     ):
         super().__init__(problem, method=method, params=params, dtype=dtype, device=device, **solver_kw)
         self.C, self.P = int(n_cams), int(n_pts)
-        if problem.nvar != 6 * self.C + 3 * self.P:
-            raise ValueError(f"nvar={problem.nvar} != 6*{n_cams} + 3*{n_pts} — not the BA layout")
-        if problem.nequ != 2 * self.C * self.P:
-            raise ValueError(
-                f"nequ={problem.nequ} != 2*C*P — residual must be the "
-                "(possibly vis-masked) raveled (C, P, 2) grid"
-            )
-        self.project = _project_default() if project is None else project
+        data = problem.data
+        self.listed = isinstance(data, dict) and "cam_idx" in data and "pt_idx" in data
+        if self.listed:
+            cd, rest = divmod(problem.nvar - 3 * self.P, self.C)
+            if rest or cd not in (6, 9):
+                raise ValueError(f"nvar={problem.nvar} is not cd*{n_cams} + 3*{n_pts} with 6 or 9 "
+                                 "parameters a camera — not the BA layout")
+            n_obs = int(data["cam_idx"].shape[0])
+            if problem.nequ != 2 * n_obs or tuple(data["pt_idx"].shape) != (n_obs,):
+                raise ValueError(f"nequ={problem.nequ} != 2*n_obs={2 * n_obs} — residual must be the "
+                                 "raveled (n_obs, 2) reprojections of the observation list")
+        else:
+            cd = 6
+            if problem.nvar != 6 * self.C + 3 * self.P:
+                raise ValueError(f"nvar={problem.nvar} != 6*{n_cams} + 3*{n_pts} — not the BA layout")
+            if problem.nequ != 2 * self.C * self.P:
+                raise ValueError(
+                    f"nequ={problem.nequ} != 2*C*P — residual must be the "
+                    "(possibly vis-masked) raveled (C, P, 2) grid"
+                )
+        self.cd = cd
+        self.project = _project_default(cd) if project is None else project
+        self._plan = None  # (structure key, cam_idx, pt_idx, PairPlan) of the last list seen
         if frozen_cam_coords is not None:
             idx = np.asarray(frozen_cam_coords, dtype=np.int64)
-            if idx.size and (idx.min() < 0 or idx.max() >= 6 * self.C):
+            if idx.size and (idx.min() < 0 or idx.max() >= cd * self.C):
                 raise ValueError("frozen_cam_coords must index the camera block")
-            mask = np.ones(6 * self.C, dtype=np.float64)
+            mask = np.ones(cd * self.C, dtype=np.float64)
             mask[idx] = 0.0
-            self._cam_mask = torch.as_tensor(mask.reshape(self.C, 6), dtype=self.dtype, device=self.device)
+            self._cam_mask = torch.as_tensor(mask.reshape(self.C, cd), dtype=self.dtype, device=self.device)
         else:
             self._cam_mask = None
         if problem.ncon > 0:
             # gauge constraints must not touch landmarks: checked once at x0
             x0 = problem.x0.to(dtype=self.dtype, device=self.device).reshape(1, -1)
             Jc = _cons_jacobian(problem, x0, _add_batch_axis(problem.data, self.device))[0]
-            if float(Jc[:, 6 * self.C:].abs().max()) > 0:
+            if float(Jc[:, cd * self.C:].abs().max()) > 0:
                 raise ValueError(
                     "SchurBASolver requires constraints on the camera block "
                     "only (gauge fixing); found landmark dependence"
                 )
+        if self.listed:
+            self.problem = _ListProducts(problem, self)
+
+    def _structure(self, data):
+        """(cam_idx, pt_idx, PairPlan) of lane 0's observation list, the plan
+        built once per structure (the index tensors are kept, so that their
+        storage, which keys the plan, stays theirs)."""
+        ci, pi = data["cam_idx"][0], data["pt_idx"][0]
+        key = (ci.untyped_storage().data_ptr(), ci.storage_offset(), pi.untyped_storage().data_ptr(),
+               pi.storage_offset(), ci.shape[0], ci.device)
+        if self._plan is None or self._plan[0] != key:
+            self._plan = (key, ci, pi, schur_pairs.plan(ci, pi, self.C))
+        return self._plan[1:]
 
     def _blocks(self, x, data):
-        """U₀ (B, C, 6, 6), V₀ (B, P, 3, 3) and W (B, C, P, 6, 3): the
-        ρ-free blocks, shared by every attempt of one ρ ladder."""
+        """The ρ-free blocks, shared by every attempt of one ρ ladder: on the
+        grid U₀ (B, C, 6, 6), V₀ (B, P, 3, 3) and W (B, C, P, 6, 3); on a list
+        U₀ (B, C, cd, cd), V₀ and W (B, n_obs, cd, 3)."""
+        if self.listed:
+            ci, pi, _ = self._structure(data)
+            A, Bm = self.problem.blocks(x, data)
+            U = _seg(torch.einsum("boki,bokj->boij", A, A), ci, self.C)
+            V = _seg(torch.einsum("boki,bokj->boij", Bm, Bm), pi, self.P)
+            W = torch.einsum("boki,bokj->boij", A, Bm)
+            return U, V, W
         A, Bm = _masked(*_obs_blocks(self.project, x, self.C, self.P), data)
         if self._cam_mask is not None:
             A = A * self._cam_mask[:, None, None, :]
@@ -240,12 +403,14 @@ class SchurBASolver(MatrixFreeSolver):
 
     def _precompute(self, s: MFState):
         pb = self.problem
-        U0, V0, W = self._blocks(s.x, s.data)
-        bx = self._rhs(s)
-        Dc = None
-        if pb.ncon > 0:
-            Jc = _cons_jacobian(pb, s.x, s.data)[:, :, : 6 * self.C]
-            Dc = torch.einsum("bki,bkj->bij", Jc, Jc) / s.delta[:, None, None]
+        with span("cannoles.schur.blocks"):
+            U0, V0, W = self._blocks(s.x, s.data)
+            bx = self._rhs(s)
+            Dc = None
+            if pb.ncon > 0:
+                Jc = (pb.cons_jacobian(s.x, s.data) if self.listed
+                      else _cons_jacobian(pb, s.x, s.data)[:, :, : self.cd * self.C])
+                Dc = torch.einsum("bki,bkj->bij", Jc, Jc) / s.delta[:, None, None]
         return U0, V0, W, bx, Dc
 
     def _newton_system(self, s: MFState, act):
@@ -265,11 +430,58 @@ class SchurBASolver(MatrixFreeSolver):
         """One Schur solve at ``rho`` (the parent's single-attempt API)."""
         return self._solve_with_blocks(s, rho, self._precompute(s))
 
+    def _grid_system(self, U, Vinv, W, Dc):
+        """X = W V⁻¹ and S = blockdiag(U) + Dc − Σₚ X Wᵀ on the grid, with the
+        sums of the back-substitution: (S, Σ_p X b_p by camera, Σ_c Wᵀ z_c by
+        point)."""
+        Bt, C, cd = U.shape[0], self.C, self.cd
+        X = torch.einsum("bcpij,bpjk->bcpik", W, Vinv)
+        T = torch.einsum("bcpik,bdpjk->bcidj", X, W)
+        Ublk = torch.einsum("bcij,cd->bcidj", U, torch.eye(C, dtype=U.dtype, device=U.device))
+        S = (Ublk - T).reshape(Bt, cd * C, cd * C)
+        if Dc is not None:
+            S = S + Dc
+
+        def reduce(bp):
+            return torch.einsum("bcpij,bpj->bci", X, bp)
+
+        def lift(zc):
+            return torch.einsum("bcpij,bci->bpj", W, zc)
+
+        return S, reduce, lift
+
+    def _list_system(self, U, Vinv, W, Dc, data):
+        """The list route's (S, reduce, lift) of :meth:`_grid_system`: X per
+        observation, the pairs' blocks from ``ops.schur_pairs.accumulate``
+        placed in the lower triangle with blockdiag(U), then mirrored."""
+        ci, pi, pp = self._structure(data)
+        Bt, C, P, cd = U.shape[0], self.C, self.P, self.cd
+        X = torch.einsum("boij,bojk->boik", W, Vinv[:, pi])
+        M = U.new_zeros((Bt, C, cd, C, cd))
+        diag = torch.arange(C, device=U.device)
+        for b in range(Bt):
+            T = schur_pairs.accumulate(X[b].contiguous(), W[b].contiguous(), pp)
+            M[b][pp.block_cam[:, 0], :, pp.block_cam[:, 1], :] = -T
+            M[b][diag, :, diag, :] += U[b]
+        count_schur("pairs", Bt * pp.n_pairs)
+        Ml = M.reshape(Bt, cd * C, cd * C)
+        S = torch.tril(Ml) + torch.tril(Ml, -1).mT
+        if Dc is not None:
+            S = S + Dc
+
+        def reduce(bp):
+            return _seg((X * bp[:, pi][:, :, None, :]).sum(-1), ci, C)
+
+        def lift(zc):
+            return _seg((W * zc[:, ci][..., None]).sum(-2), pi, P)
+
+        return S, reduce, lift
+
     def _solve_with_blocks(self, s: MFState, rho, pre):
         """Direct Schur solve of (ρ I + JᵀJ + JcᵀJc/δ) z = b from the
         precomputed blocks; returns (zx, ok, 1 per lane)."""
         pb, pr = self.problem, self.params
-        C, P = self.C, self.P
+        C, P, cd = self.C, self.P, self.cd
         x, data = s.x, s.data
         Bt = x.shape[0]
         dt, dev = x.dtype, x.device
@@ -277,36 +489,32 @@ class SchurBASolver(MatrixFreeSolver):
         if self.method == "lm":
             rho = rho + torch.clamp(s.damp, 1e-10, 1e8)
         U0, V0, W, bx, Dc = pre
-        eye6 = torch.eye(6, dtype=dt, device=dev)
-        U = U0 + rho[:, None, None, None] * eye6
-        V = V0 + rho[:, None, None, None] * torch.eye(3, dtype=dt, device=dev)
-        bc = bx[:, : 6 * C].reshape(Bt, C, 6)
-        bp = bx[:, 6 * C:].reshape(Bt, P, 3)
+        bc = bx[:, : cd * C].reshape(Bt, C, cd)
+        bp = bx[:, cd * C:].reshape(Bt, P, 3)
 
-        # landmark elimination, Jacobi-scaled (f32 blocks span ~8 orders
-        # across depth; scaling keeps the small pivots and makes the minors
-        # test scale-relative)
-        Vinv, posdef = _jacobi_scaled_inv3(V, pr.eig_tol)
-        X = torch.einsum("bcpij,bpjk->bcpik", W, Vinv)
+        with span("cannoles.schur.assemble"):
+            U = U0 + rho[:, None, None, None] * torch.eye(cd, dtype=dt, device=dev)
+            V = V0 + rho[:, None, None, None] * torch.eye(3, dtype=dt, device=dev)
+            # landmark elimination, Jacobi-scaled (f32 blocks span ~8 orders
+            # across depth; scaling keeps the small pivots and makes the minors
+            # test scale-relative)
+            Vinv, posdef = _jacobi_scaled_inv3(V, pr.eig_tol)
+            # reduced camera system S = blockdiag(U) + Dc − Σₚ X Wᵀ, (cd·C, cd·C)
+            S, reduce, lift = (self._list_system(U, Vinv, W, Dc, data) if self.listed
+                               else self._grid_system(U, Vinv, W, Dc))
+            count_schur("assemble", Bt)
 
-        # reduced camera system S = blockdiag(U) + Dc − Σₚ X Wᵀ, (6C, 6C)
-        T = torch.einsum("bcpik,bdpjk->bcidj", X, W)
-        Ublk = torch.einsum("bcij,cd->bcidj", U, torch.eye(C, dtype=dt, device=dev))
-        S = (Ublk - T).reshape(Bt, 6 * C, 6 * C)
-        if Dc is not None:
-            S = S + Dc
-
-        # Jacobi-scaled camera system: unit diagonal before the Cholesky
-        sS = torch.rsqrt(torch.clamp(_diag(S), min=1e-30))
-        Ls = _cholesky_nan(S * sS[:, :, None] * sS[:, None, :])
-        dls = _diag(Ls)
-        okS = torch.isfinite(Ls).flatten(1).all(-1) & (dls * dls > pr.eig_tol).all(-1)
+        with span("cannoles.schur.factor"):
+            # Jacobi-scaled camera system: unit diagonal before the Cholesky
+            sS = torch.rsqrt(torch.clamp(_diag(S), min=1e-30))
+            Ls = _cholesky_nan(S * sS[:, :, None] * sS[:, None, :])
+            dls = _diag(Ls)
+            okS = torch.isfinite(Ls).flatten(1).all(-1) & (dls * dls > pr.eig_tol).all(-1)
 
         def schur_solve(bcv, bpv):
-            rcv = (bcv - torch.einsum("bcpij,bpj->bci", X, bpv)).reshape(Bt, 6 * C)
-            zcv = (sS * torch.cholesky_solve((sS * rcv)[..., None], Ls)[..., 0]).reshape(Bt, C, 6)
-            wtz = torch.einsum("bcpij,bci->bpj", W, zcv)
-            zpv = torch.einsum("bpij,bpj->bpi", Vinv, bpv - wtz)
+            rcv = (bcv - reduce(bpv)).reshape(Bt, cd * C)
+            zcv = (sS * torch.cholesky_solve((sS * rcv)[..., None], Ls)[..., 0]).reshape(Bt, C, cd)
+            zpv = torch.einsum("bpij,bpj->bpi", Vinv, bpv - lift(zcv))
             return torch.cat([zcv.reshape(Bt, -1), zpv.reshape(Bt, -1)], -1)
 
         def matvec(v):
@@ -316,15 +524,16 @@ class SchurBASolver(MatrixFreeSolver):
             return out
 
         def split(v):
-            return v[:, : 6 * C].reshape(Bt, C, 6), v[:, 6 * C:].reshape(Bt, P, 3)
+            return v[:, : cd * C].reshape(Bt, C, cd), v[:, cd * C:].reshape(Bt, P, 3)
 
-        zx = schur_solve(bc, bp)
-        # one pass of operator-level iterative refinement (the adjugate
-        # inverses and the float32 einsum chain lose 3-4 digits)
-        zx = zx + schur_solve(*split(bx - matvec(zx)))
-        # backward-error gate at the inexact-Newton forcing bound
-        nb2 = norm_2(bx)
-        relres = norm_2(bx - matvec(zx)) / torch.where(nb2 > 0, nb2, torch.ones_like(nb2))
-        eta = max(self.cg_rtol * 10, 0.1)
-        ok = posdef.all(-1) & okS & torch.isfinite(zx).all(-1) & (relres <= eta)
+        with span("cannoles.schur.solve"):
+            zx = schur_solve(bc, bp)
+            # one pass of operator-level iterative refinement (the adjugate
+            # inverses and the float32 einsum chain lose 3-4 digits)
+            zx = zx + schur_solve(*split(bx - matvec(zx)))
+            # backward-error gate at the inexact-Newton forcing bound
+            nb2 = norm_2(bx)
+            relres = norm_2(bx - matvec(zx)) / torch.where(nb2 > 0, nb2, torch.ones_like(nb2))
+            eta = max(self.cg_rtol * 10, 0.1)
+            ok = posdef.all(-1) & okS & torch.isfinite(zx).all(-1) & (relres <= eta)
         return zx, ok, torch.ones((Bt,), dtype=torch.int32, device=dev)

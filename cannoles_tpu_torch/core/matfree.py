@@ -681,9 +681,12 @@ class MatrixFreeSolver:
         max_time: float = 300.0,
         verbose: int = 0,
         resume_from: Optional[MFState] = None,
+        data=None,
         **numeric,
     ) -> ExecutionStats:
         """One instance (B = 1), one outer step per host iteration.
+        ``data``: the instance's data in place of ``problem.data`` (the same
+        structure, no batch axis).
         ``resume_from``: a state (B = 1) to continue; its tolerances are
         kept unless ``atol``/``rtol``/``Fatol``/``Frtol`` are given, which
         re-target the run from the current iterate.  ``max_time`` is read
@@ -706,7 +709,7 @@ class MatrixFreeSolver:
             lam0 = pb.y0 if lam0 is None else lam0
             x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device).reshape(1, -1)
             lam0 = torch.as_tensor(lam0, dtype=self.dtype, device=self.device).reshape(1, -1)
-            state = self._init_state(x0, lam0, cfg, _add_batch_axis(pb.data, self.device))
+            state = self._init_state(x0, lam0, cfg, _add_batch_axis(pb.data if data is None else data, self.device))
         self._sync(state, stats, time.time() - t0)
         self._callback(callback, state, stats)
         try:

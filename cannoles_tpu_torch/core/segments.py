@@ -160,10 +160,12 @@ def counters() -> dict:
     the fused LDLT kernel's by (N, B, dtype) under ``("fused_ldlt", shape)``),
     the bank stores' batched copies (``"bank_copy"``, launches, and
     ``("bank_copy", "entries")`` and ``("bank_copy", "left")``, the pairs
-    folded into them and left to ``copy_``), and the counts of
-    ``utils/spans.py``: ``"host_syncs"``, their sum, and ``("host_syncs",
-    site)``, ``("all_false", site)`` and ``("rescue_lanes", stage)``."""
-    from ..ops import block_chol, fused_ldlt
+    folded into them and left to ``copy_``), the Schur pair kernel's
+    launches (``"schur_pairs"``), and the counts of ``utils/spans.py``:
+    ``"host_syncs"``, their sum, and ``("host_syncs", site)``,
+    ``("all_false", site)``, ``("rescue_lanes", stage)`` and ``("schur",
+    "assemble" | "pairs")``."""
+    from ..ops import block_chol, fused_ldlt, schur_pairs
 
     return {
         "fused_ldlt": fused_ldlt.LAUNCHES,
@@ -172,6 +174,7 @@ def counters() -> dict:
         **{("fused_ldlt", k): n for k, n in fused_ldlt.BY_SHAPE.items()},
         "bank_copy": bank_copy.LAUNCHES,
         **{("bank_copy", k): n for k, n in bank_copy.COUNTS.items()},
+        "schur_pairs": schur_pairs.LAUNCHES,
         "host_syncs": sum(spans.SYNCS.values()),
         **{(kind, k): n for kind, d in spans.COUNTS.items() for k, n in d.items()},
     }
@@ -199,9 +202,10 @@ def _credit(delta: dict):
 
 def restore_counters(before: dict):
     """Put the counters back to ``counters()``'s reading."""
-    from ..ops import block_chol, fused_ldlt
+    from ..ops import block_chol, fused_ldlt, schur_pairs
 
     fused_ldlt.LAUNCHES = before["fused_ldlt"]
+    schur_pairs.LAUNCHES = before["schur_pairs"]
     block_chol.FUSED_LAUNCHES = before["chol_fused"]
     block_chol.BLOCK_LAUNCHES = before["chol_block"]
     bank_copy.LAUNCHES = before["bank_copy"]

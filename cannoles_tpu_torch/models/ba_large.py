@@ -19,7 +19,21 @@ import torch
 
 from ..problem import NLSProblem, default_device, nls_problem
 
-__all__ = ["project_point", "large_bundle_adjustment"]
+__all__ = ["rotate", "project_point", "large_bundle_adjustment"]
+
+
+def rotate(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """R(w) X for angle-axis ``w`` (..., 3) and points ``X`` (..., 3), both
+    of X's shape: the small-angle-safe Rodrigues formula of the JAX
+    ``project_point`` (X + w × X below θ² = 1e-12)."""
+    theta2 = (w * w).sum(-1, keepdim=True)
+    theta = torch.sqrt(theta2 + 1e-30)
+    k = w / theta
+    c, s = torch.cos(theta), torch.sin(theta)
+    k, w = k.expand(X.shape), w.expand(X.shape)
+    kxX = torch.linalg.cross(k, X, dim=-1)
+    Xc_full = c * X + s * kxX + (1 - c) * (k * X).sum(-1, keepdim=True) * k
+    return torch.where(theta2 < 1e-12, X + torch.linalg.cross(w, X, dim=-1), Xc_full)
 
 
 def project_point(cam: torch.Tensor, pt: torch.Tensor, focal: float = 1.0) -> torch.Tensor:
@@ -29,14 +43,7 @@ def project_point(cam: torch.Tensor, pt: torch.Tensor, focal: float = 1.0) -> to
     the JAX ``project_point``."""
     w, t = cam[..., :3], cam[..., 3:]
     X = pt - t
-    theta2 = (w * w).sum(-1, keepdim=True)
-    theta = torch.sqrt(theta2 + 1e-30)
-    k = w / theta
-    c, s = torch.cos(theta), torch.sin(theta)
-    k, w = k.expand(X.shape), w.expand(X.shape)
-    kxX = torch.linalg.cross(k, X, dim=-1)
-    Xc_full = c * X + s * kxX + (1 - c) * (k * X).sum(-1, keepdim=True) * k
-    Xc = torch.where(theta2 < 1e-12, X + torch.linalg.cross(w, X, dim=-1), Xc_full)
+    Xc = rotate(w, X)
     z = torch.clamp(Xc[..., 2:], min=1e-3)
     return focal * Xc[..., :2] / z
 

@@ -7,7 +7,10 @@ processes of all sources run at once.  The build runs at first use, into
 hash of the source and flags, so a fresh checkout builds everything it
 needs and a changed source is rebuilt.  A missing ``nvcc`` or a failed build
 raises with the compiler's output; nothing falls back.  Nothing is built
-when the package is imported.
+when the package is imported.  ``load()`` builds the kernels of every
+solver's path; a kernel that only one engine reaches (``_ON_USE``) is built
+and loaded by ``load_source`` at that engine's first launch, so that the
+paths that never reach it do not wait for its build.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import threading
 import time
 import types
 
-__all__ = ["load", "BUILD_INFO"]
+__all__ = ["load", "load_source", "BUILD_INFO"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PKG / "_build"
@@ -55,8 +58,18 @@ _SOURCES = {
     },
 }
 
+# built at first use by ``load_source``: the Schur engine's pair kernel
+# (core/ba.py on an observation list)
+_ON_USE = {
+    "schur_pairs.cu": {
+        name: [_P, _P, _P, _P, _P, _I, _I, _P, _P]
+        for name in ("cannoles_schur_pairs_f32", "cannoles_schur_pairs_f64")
+    },
+}
+
 _LOCK = threading.Lock()
 _LIB = None
+_ON_USE_LIBS: dict = {}
 # filled by the first load(): per source, the library path, the build
 # seconds (0 when cached) and ptxas's register/shared-memory report; and
 # the wall seconds of the whole (parallel) build
@@ -79,12 +92,12 @@ def _lib_path(src: pathlib.Path) -> pathlib.Path:
     return _BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build() -> dict:
-    """Build every source not built yet, all nvcc processes at once;
-    returns {source name: library path}."""
+def _build(names) -> dict:
+    """Build every source of ``names`` not built yet, all nvcc processes at
+    once; returns {source name: library path}."""
     libs, procs = {}, {}
     t0 = time.perf_counter()
-    for name in _SOURCES:
+    for name in names:
         src = _PKG / "csrc" / name
         lib = _lib_path(src)
         libs[name] = lib
@@ -106,24 +119,38 @@ def _build() -> dict:
         BUILD_INFO[name] = dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=err)
     if failed:
         raise RuntimeError("\n".join(failed))
-    BUILD_INFO["wall_seconds"] = time.perf_counter() - t0
     return libs
 
 
+def _bind(libs: dict, table: dict) -> types.SimpleNamespace:
+    fns = {"_libs": []}  # the CDLLs stay referenced while loaded
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        fns["_libs"].append(lib)
+        for fn_name, argtypes in table[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[fn_name] = fn
+    return types.SimpleNamespace(**fns)
+
+
 def load() -> types.SimpleNamespace:
-    """The kernels' C functions as attributes, every library built on the
-    first call."""
+    """The kernels' C functions as attributes, every library of
+    ``_SOURCES`` built on the first call."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            fns = {"_libs": []}  # the CDLLs stay referenced while loaded
-            for name, path in _build().items():
-                lib = ctypes.CDLL(str(path))
-                fns["_libs"].append(lib)
-                for fn_name, argtypes in _SOURCES[name].items():
-                    fn = getattr(lib, fn_name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    fns[fn_name] = fn
-            _LIB = types.SimpleNamespace(**fns)
+            t0 = time.perf_counter()
+            _LIB = _bind(_build(_SOURCES), _SOURCES)
+            BUILD_INFO["wall_seconds"] = time.perf_counter() - t0
         return _LIB
+
+
+def load_source(name: str) -> types.SimpleNamespace:
+    """The C functions of one source of ``_ON_USE``, built and loaded on
+    its first call."""
+    with _LOCK:
+        if name not in _ON_USE_LIBS:
+            _ON_USE_LIBS[name] = _bind(_build([name]), _ON_USE)
+        return _ON_USE_LIBS[name]

@@ -24,6 +24,14 @@
   flags were all false (no lane took the branch), by site;
   ``RESCUE_LANES`` the lanes that each rescue stage re-ran.  Read them
   through ``core.segments.counters()`` (``COUNTS`` names them there).
+* The camera-Schur engine's work (``core/ba.py``), also counted with
+  tracing on or off: ``SCHUR["assemble"]`` the camera systems assembled (one
+  a lane per ρ attempt) and ``SCHUR["pairs"]`` the pair blocks X_i W_jᵀ
+  summed into them on an observation list, read as ``("schur", ...)``.
+  Its spans: ``cannoles.schur.blocks`` (per-observation blocks, U, V, W, the
+  right-hand side), ``.assemble`` (V⁻¹, X, the pair sums, S),
+  ``.factor`` (the scaling and Cholesky of S) and ``.solve``
+  (substitutions, refinement, the backward-error gate).
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import contextlib
 
 import torch
 
-__all__ = ["span", "count_check", "count_read", "count_rescue", "SYNCS", "ALL_FALSE", "RESCUE_LANES", "COUNTS"]
+__all__ = ["span", "count_check", "count_read", "count_rescue", "count_schur", "SYNCS", "ALL_FALSE", "RESCUE_LANES",
+           "SCHUR", "COUNTS"]
 
 _enabled = torch._C._autograd._profiler_enabled
 _Range = torch._C._profiler._RecordFunctionFast
@@ -43,8 +52,10 @@ SYNCS: dict = {}
 ALL_FALSE: dict = {}
 # lanes re-run by rescue stage
 RESCUE_LANES: dict = {}
+# the Schur engine's camera systems and pair blocks
+SCHUR: dict = {}
 # the counts by their name in ``core.segments.counters()``
-COUNTS = {"host_syncs": SYNCS, "all_false": ALL_FALSE, "rescue_lanes": RESCUE_LANES}
+COUNTS = {"host_syncs": SYNCS, "all_false": ALL_FALSE, "rescue_lanes": RESCUE_LANES, "schur": SCHUR}
 # "check:<segment>" by segment, so that a check builds no string
 _SITES: dict = {}
 _OFF = contextlib.nullcontext()
@@ -76,3 +87,8 @@ def count_read(site: str):
 def count_rescue(stage: str, lanes: int):
     """Count the ``lanes`` that one pass of rescue ``stage`` re-runs."""
     RESCUE_LANES[stage] = RESCUE_LANES.get(stage, 0) + lanes
+
+
+def count_schur(kind: str, n: int):
+    """Count ``n`` of the Schur engine's ``kind`` (``"assemble"``, ``"pairs"``)."""
+    SCHUR[kind] = SCHUR.get(kind, 0) + n

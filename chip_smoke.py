@@ -113,7 +113,19 @@ phase 21, before the pool, since it times the card:
    graph (device ms a store, CUDA events).  The size sweep behind
    ``CUT_BYTES`` is ``python -m cannoles_tpu_torch.bench_copy --cut``.
 
-Phase 23 (the routes' peak device memory) runs after phase 25, before the
+Phase 26 (the camera-Schur pair kernel, ``ops/schur_pairs.py``) runs after
+phase 25, before the pool, since it times the card:
+
+26. the kernel on BAL Dubrovnik-356's pair plan (``SCHUR_PAIRS_SCENE``:
+   ``models.bal.draw_scene`` at seed 0, 5.94M pairs in 17,088 lower camera
+   blocks, built on the card) with random X and W, float32 at cd = 9 and 6
+   and float64 at cd = 9: every entry within ``SCHUR_PAIRS_BAR`` of the sum
+   of its terms' magnitudes from the plain version, bit-equal across two
+   launches, each launch counted (the counter zeroed just before); at
+   float32, cd = 9 the kernel, its plain version and the library route
+   (``bmm`` + ``index_add_``) timed with CUDA events, beside the bound.
+
+Phase 23 (the routes' peak device memory) runs after phase 26, before the
 pool:
 
 23. ``large_rung_problem(m, 1024)`` (float32, Gauss–Newton, condensed,
@@ -2621,6 +2633,94 @@ def phase_bank_copy(dev, layouts=COPY_LAYOUTS, solves=COPY_SOLVE_B, batches=COPY
     return out
 
 
+# BAL Dubrovnik-356's observation structure (cameras, points, observations:
+# ``models.bal.draw_scene`` at seed 0), the pair kernel's main-path shape in
+# the benchmark's cell ``bal_dubrovnik356.pool4``; its (dtype, cd) cases,
+# the first the main path's and the one timed; the bars on |T - plain|
+# over the sum of the terms' magnitudes, entry by entry
+SCHUR_PAIRS_SCENE = (356, 226_730, 1_255_268)
+SCHUR_PAIRS_CASES = ((torch.float32, 9), (torch.float32, 6), (torch.float64, 9))
+SCHUR_PAIRS_BAR = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _pairs_library(X, W, pp):
+    """The library route of the pair sums: chunked ``bmm`` and
+    ``index_add_`` (float atomics, in no fixed order)."""
+    from cannoles_tpu_torch.ops import schur_pairs
+
+    out = X.new_zeros((pp.n_blocks, X.shape[1], X.shape[1]))
+    for s in range(0, pp.n_pairs, schur_pairs.CHUNK):
+        i, j = pp.pair_i[s:s + schur_pairs.CHUNK].long(), pp.pair_j[s:s + schur_pairs.CHUNK].long()
+        out.index_add_(0, pp.block_of_pair[s:s + schur_pairs.CHUNK], torch.bmm(X[i], W[j].transpose(1, 2)))
+    return out
+
+
+def _pairs_bound(n_obs, pp, cd, dtype):
+    """The pair kernel's least time (ms): X and W read once (n_obs·cd·3
+    items each), the pair list once (two 32-bit indices a pair, one a
+    block), each lower block written once; 2·cd²·3 operations a pair."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (2 * n_obs * cd * 3 + pp.n_blocks * cd * cd) * item + (2 * pp.n_pairs + pp.n_blocks + 1) * 4
+    return _bound(nbytes, 2 * cd * cd * 3 * pp.n_pairs, dtype)
+
+
+def phase_schur_pairs(dev, scene=SCHUR_PAIRS_SCENE, cases=SCHUR_PAIRS_CASES):
+    """Phase 26: the camera-Schur pair kernel (``ops/schur_pairs.py``) on
+    BAL Dubrovnik-356's pair plan, built on the card, with random X and W
+    (n_obs, cd, 3) of each case.  The kernel against its plain version on the
+    same X and W: every entry of every block within ``SCHUR_PAIRS_BAR`` of
+    the sum of its terms' magnitudes (the plain version on |X| and |W|);
+    bit-equal across two launches; one launch counted per launch (the
+    counter zeroed just before).  At the first case the kernel, the plain
+    version and the library route (``bmm`` + ``index_add_``) are timed with
+    CUDA events, beside the bound from the inputs."""
+    from cannoles_tpu_torch.models.bal import draw_scene
+    from cannoles_tpu_torch.ops import schur_pairs
+
+    C, P, n_obs = scene
+    sc = draw_scene(C, P, n_obs, seed=0)
+    pp = schur_pairs.plan(sc["cam_idx"].to(dev), sc["pt_idx"].to(dev), C)
+    out = dict(shape=f"{C} cameras, {P:,} points, {n_obs:,} observations", pairs=pp.n_pairs,
+               blocks=pp.n_blocks, cases=[])
+    g = torch.Generator(device=dev).manual_seed(26)
+    schur_pairs.LAUNCHES = 0
+    launched = 0
+    for k, (dtype, cd) in enumerate(cases):
+        X = torch.randn((n_obs, cd, 3), generator=g, dtype=dtype, device=dev)
+        W = torch.randn((n_obs, cd, 3), generator=g, dtype=dtype, device=dev)
+        T1 = schur_pairs.accumulate(X, W, pp)
+        T2 = schur_pairs.accumulate(X, W, pp)
+        launched += 2
+        ref = schur_pairs.plain(X, W, pp)
+        mag = schur_pairs.plain(X.abs(), W.abs(), pp)
+        torch.cuda.synchronize()
+        ratio = float(((T1 - ref).abs() / mag.clamp_min(torch.finfo(dtype).tiny)).max())
+        case = dict(dtype=str(dtype)[6:], cd=cd, err_over_magnitude=ratio, bit_equal=bool(torch.equal(T1, T2)),
+                    max_abs_err=float((T1 - ref).abs().max()))
+        if not case["bit_equal"] or not ratio <= SCHUR_PAIRS_BAR[dtype]:
+            raise AssertionError(f"phase 26: the pair kernel at {case}: not bit-equal across launches or over "
+                                 f"{SCHUR_PAIRS_BAR[dtype]:g} of its terms' magnitudes against the plain version")
+        if k == 0:
+            ms = _events_ms(lambda: schur_pairs.accumulate(X, W, pp), reps=20)
+            launched += 20 + 3
+            bound, by = _pairs_bound(n_obs, pp, cd, dtype)
+            lib = _events_ms(lambda: _pairs_library(X, W, pp), reps=3)
+            a, b = _pairs_library(X, W, pp), _pairs_library(X, W, pp)
+            out.update(ms=ms, plain_ms=_events_ms(lambda: schur_pairs.plain(X, W, pp), reps=3), bound_ms=bound,
+                       bound_by=by, library_ms=lib, library_bit_equal=bool(torch.equal(a, b)),
+                       timed=f"{case['dtype']} cd={cd}")
+        out["cases"].append(case)
+        del X, W, T1, T2, ref, mag
+    out["launches"] = schur_pairs.LAUNCHES
+    if out["launches"] != launched:
+        raise AssertionError(f"phase 26: {out['launches']} pair-kernel launches counted for {launched} made")
+    _log(f"  pair kernel on {out['shape']} ({out['pairs']:,} pairs, {out['blocks']:,} blocks): {out['cases']}")
+    _log(f"  {out['timed']}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bmm + index_add_ "
+         f"{out['library_ms']:.4f} ms (bit-equal across runs: {out['library_bit_equal']}), bound "
+         f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {100 * out['bound_ms'] / out['ms']:.2f}%)")
+    return out
+
+
 MEMORY_ROWS = (8192, 65536, 262144)
 MEMORY_RATIO_BAR = 1.25
 
@@ -2876,6 +2976,10 @@ def main() -> int:
     _phase("phase 25: the bank store's batched copy (kernel vs plain version, engagement, outer_post stores)")
     copies = phase_bank_copy(dev)
 
+    _phase("phase 26: the camera-Schur pair kernel on BAL Dubrovnik-356's plan (kernel vs plain version, times)")
+    pairs = phase_schur_pairs(dev)
+    torch.cuda.empty_cache()
+
     _phase("phase 23: peak device memory of the graph and eager routes, large_rung_problem(m, 1024) at m = "
            + ", ".join(f"{m:,}" for m in MEMORY_ROWS))
     memory = phase_memory(dev)
@@ -3002,6 +3106,12 @@ def main() -> int:
         "source": "cannoles_tpu_torch/csrc/bank_copy.cu",
         "replaces": None,  # no TPU kernel: the graph route's copy of a segment's outputs
         **copies,
+    }, {
+        "name": "schur_pairs",
+        "route": "cuda",
+        "source": "cannoles_tpu_torch/csrc/schur_pairs.cu",
+        "replaces": None,  # no TPU kernel: the JAX package's Schur engine takes the dense grid's einsum
+        **pairs,
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},

@@ -948,3 +948,71 @@ def test_bench_rungs_on_card(cuda):
     assert solved == "16/16" and (sps_dev is None) == (mfu is None)
     ms, ms_dev, ms_bf16, mfu, status, err = bench.run_large_rung(cuda, 1024, 128, reps=1)
     assert status == 1 and err <= 1e-3 and ms > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_schur_pairs_kernel_matches_plain_at_dubrovnik_size_on_card(cuda, dtype):
+    """The pair kernel at BAL Dubrovnik-356's pairs (5.94M, 356 cameras of 9
+    parameters): against its plain version (float64 to 1e-12, float32 to
+    1e-5 of each block's scale: the two sum in other orders), bit-equal to
+    itself across two launches, one launch counted."""
+    from cannoles_tpu_torch.models.bal import draw_scene
+    from cannoles_tpu_torch.ops import schur_pairs
+
+    dt = getattr(torch, dtype)
+    sc = draw_scene(356, 226_730, 1_255_268, seed=0)
+    pp = schur_pairs.plan(sc["cam_idx"].to(cuda), sc["pt_idx"].to(cuda), 356)
+    assert pp.n_pairs > 5_900_000 and pp.n_blocks <= 356 * 357 // 2
+    g = torch.Generator(device=cuda).manual_seed(11)
+    X = torch.randn((1_255_268, 9, 3), generator=g, dtype=dt, device=cuda)
+    W = torch.randn((1_255_268, 9, 3), generator=g, dtype=dt, device=cuda)
+    before = schur_pairs.LAUNCHES
+    T1 = schur_pairs.accumulate(X, W, pp)
+    T2 = schur_pairs.accumulate(X, W, pp)
+    torch.cuda.synchronize()
+    assert schur_pairs.LAUNCHES == before + 2
+    assert torch.equal(T1, T2)
+    ref = schur_pairs.plain(X, W, pp)
+    scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
+    assert float(((T1 - ref).abs() / scale).max()) <= (1e-12 if dt == torch.float64 else 1e-5)
+    T6 = schur_pairs.accumulate(X[:, :6].contiguous(), W[:, :6].contiguous(), pp)
+    ref6 = schur_pairs.plain(X[:, :6].contiguous(), W[:, :6].contiguous(), pp)
+    assert float((T6 - ref6).abs().max()) <= (1e-12 if dt == torch.float64 else 1e-5) * float(ref6.abs().max())
+    with pytest.raises(ValueError, match="6 or 9"):
+        schur_pairs.accumulate(X[:, :4].contiguous(), W[:, :4].contiguous(), pp)
+
+
+def test_bal_solve_on_card_against_the_float64_reference(cuda):
+    """One LM solve of a tenth of Dubrovnik-356 (36 cameras, 22,673 points,
+    125,527 observations) in float32 on the card: first_order, one pair
+    launch a camera system, bit-equal across two solves, and the cost within
+    1e-3 of the float64 reference's optimum (``tests/bal_plain.py`` on the
+    card) with the first-order measure under twice the stated tolerance."""
+    import bal_plain as bp
+
+    from cannoles_tpu_torch.core import segments
+    from cannoles_tpu_torch.core.ba import SchurBASolver
+    from cannoles_tpu_torch.models.bal import bal_scene
+
+    C, P = 36, 22_673
+    pb, _ = bal_scene(C, P, 125_527, seed=0, dtype=torch.float32, device=cuda)
+    runs = []
+    for _ in range(2):
+        s = SchurBASolver(pb, C, P, method="lm", use_initial_multiplier=True)
+        c0 = segments.counters()
+        st = s.solve(max_iter=50)
+        c1 = segments.counters()
+        runs.append((st, s.last_state))
+        assert st.status == "first_order", st.status
+        assert c1["schur_pairs"] - c0["schur_pairs"] == c1[("schur", "assemble")] - c0.get(("schur", "assemble"), 0)
+        assert c1["schur_pairs"] - c0["schur_pairs"] == st.solver_specific["nfact"]
+    (a, sa), (b, sb) = runs
+    assert (a.iter, a.solver_specific["nfact"]) == (b.iter, b.solver_specific["nfact"])
+    assert torch.equal(sa.x, sb.x) and torch.equal(sa.lam, sb.lam)
+    sc = bp.scene(pb, C, P)
+    x0 = pb.x0.to(torch.float64)
+    _, f_ref = bp.solve(x0, sc)
+    x = sa.x[0].to(torch.float64)
+    assert (bp.cost(x, sc) - f_ref) / f_ref <= 1e-3
+    tol = bp.tolerance(x0, sc, float(torch.finfo(torch.float32).eps))
+    assert bp.measure(x, sa.r[0].to(torch.float64), sa.lam[0].to(torch.float64), sc) <= 2 * tol
