@@ -35,9 +35,12 @@ each lower-triangle block summed by one kernel launch on a card), then
 mirrored.  The back-substitution runs by the same sums, and so do the
 solver's products: J v = A v_c[cam_idx] + Bm v_p[pt_idx] and Jᵀw by the
 segment sums of Aᵀw and Bmᵀw, from the blocks at x, which every product
-and the assembly at one iterate share (:class:`_ListProducts`).  Every sum
-over observations is ``ops.schur_pairs.segment_sum`` or the pair kernel, in
-a fixed order, so a solve repeats bit for bit on a card.
+and the assembly at one iterate share (:class:`_ListProducts`).  Every
+product over observations (J v, Jᵀw, U and V, the back-substitution's
+two sums) is one call of ``ops/obs_products.py``: one kernel launch on a
+card, its plain version (einsums and ``schur_pairs.segment_sum``) on the
+CPU.  Every sum over observations runs in a fixed order, so a solve
+repeats bit for bit on a card.
 
 Spans ``cannoles.schur.blocks``, ``.assemble``, ``.factor``, ``.solve``
 and the counts ``("schur", "assemble" | "pairs")`` (``utils/spans.py``)
@@ -56,7 +59,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vjp, vmap
 
-from ..ops import schur_pairs
+from ..ops import obs_products, schur_pairs
 from ..params import Params
 from ..problem import NLSProblem
 from ..utils.linalg import norm_2
@@ -112,18 +115,14 @@ def _list_obs_blocks(project, x, C: int, P: int, cd: int, cam_idx, pt_idx):
     return A.to(x.dtype), Bm.to(x.dtype)
 
 
-def _seg(values, index, n: int):
-    """``schur_pairs.segment_sum`` over axis 1 of (B, k, ...): (B, n, ...)."""
-    return schur_pairs.segment_sum(values.transpose(0, 1), index, n).transpose(0, 1)
-
-
 class _ListProducts:
     """The list route's view of a problem: its products from the
     per-observation blocks at x, everything else the problem's.
 
     J v = A v_c[cam_idx] + Bm v_p[pt_idx], Jᵀw = (Σ_{obs of c} Aᵀw,
-    Σ_{obs of p} Bmᵀw), Jc v and Jcᵀw from the constraints' Jacobian on the
-    camera block.  The blocks (A masked by ``solver``'s frozen coordinates)
+    Σ_{obs of p} Bmᵀw) (``ops/obs_products.py``), Jc v and Jcᵀw from the
+    constraints' Jacobian on the camera block.  The blocks (A masked by
+    ``solver``'s frozen coordinates)
     and Jc are worked out once per iterate and kept for the last ``KEEP``
     iterates (held, so compared by identity), so the Schur assembly and
     every product at one x share one forward pass."""
@@ -143,11 +142,12 @@ class _ListProducts:
             if x_k is x and version == x._version:
                 return got
         sv = self._solver
-        ci, pi, _ = sv._structure(data)
+        _, sl = sv._structure(data)
+        ci, pi = sl.cam_idx, sl.pt_idx
         A, Bm = _list_obs_blocks(sv.project, x, sv.C, sv.P, sv.cd, ci, pi)
         if sv._cam_mask is not None:
             A = A * sv._cam_mask[ci][None, :, None, :]
-        got = dict(A=A, Bm=Bm, ci=ci, pi=pi)
+        got = dict(A=A, Bm=Bm, sl=sl)
         self._kept = [(x, x._version, got)] + self._kept[: self.KEEP - 1]
         return got
 
@@ -164,18 +164,12 @@ class _ListProducts:
         return got["Jc"]
 
     def jprod_res(self, x, v, data=None):
-        got, sv = self._at(x, data), self._solver
-        vc = v[:, : sv.cd * sv.C].reshape(v.shape[0], sv.C, sv.cd)[:, got["ci"]]
-        vp = v[:, sv.cd * sv.C:].reshape(v.shape[0], sv.P, 3)[:, got["pi"]]
-        Jv = torch.einsum("boki,boi->bok", got["A"], vc) + torch.einsum("boki,boi->bok", got["Bm"], vp)
-        return Jv.reshape(v.shape[0], -1)
+        got = self._at(x, data)
+        return obs_products.jv(got["A"], got["Bm"], v, got["sl"])
 
     def jtprod_res(self, x, w, data=None):
-        got, sv = self._at(x, data), self._solver
-        w = w.reshape(w.shape[0], -1, 2)
-        gc = _seg(torch.einsum("boki,bok->boi", got["A"], w), got["ci"], sv.C)
-        gp = _seg(torch.einsum("boki,bok->boi", got["Bm"], w), got["pi"], sv.P)
-        return torch.cat([gc.reshape(w.shape[0], -1), gp.reshape(w.shape[0], -1)], -1)
+        got = self._at(x, data)
+        return obs_products.jtw(got["A"], got["Bm"], w, got["sl"])
 
     def jprod_cons(self, x, v, data=None):
         Jc = self.cons_jacobian(x, data)
@@ -349,7 +343,7 @@ class SchurBASolver(MatrixFreeSolver):
                 )
         self.cd = cd
         self.project = _project_default(cd) if project is None else project
-        self._plan = None  # (structure key, cam_idx, pt_idx, PairPlan) of the last list seen
+        self._plan = None  # (structure key, PairPlan, SegmentLists) of the last list seen
         if frozen_cam_coords is not None:
             idx = np.asarray(frozen_cam_coords, dtype=np.int64)
             if idx.size and (idx.min() < 0 or idx.max() >= cd * self.C):
@@ -372,14 +366,14 @@ class SchurBASolver(MatrixFreeSolver):
             self.problem = _ListProducts(problem, self)
 
     def _structure(self, data):
-        """(cam_idx, pt_idx, PairPlan) of lane 0's observation list, the plan
-        built once per structure (the index tensors are kept, so that their
+        """(PairPlan, SegmentLists) of lane 0's observation list, both built
+        once per structure (the lists keep the index tensors, so that their
         storage, which keys the plan, stays theirs)."""
         ci, pi = data["cam_idx"][0], data["pt_idx"][0]
         key = (ci.untyped_storage().data_ptr(), ci.storage_offset(), pi.untyped_storage().data_ptr(),
                pi.storage_offset(), ci.shape[0], ci.device)
         if self._plan is None or self._plan[0] != key:
-            self._plan = (key, ci, pi, schur_pairs.plan(ci, pi, self.C))
+            self._plan = (key, schur_pairs.plan(ci, pi, self.C), obs_products.lists(ci, pi, self.C, self.P))
         return self._plan[1:]
 
     def _blocks(self, x, data):
@@ -387,10 +381,9 @@ class SchurBASolver(MatrixFreeSolver):
         grid U₀ (B, C, 6, 6), V₀ (B, P, 3, 3) and W (B, C, P, 6, 3); on a list
         U₀ (B, C, cd, cd), V₀ and W (B, n_obs, cd, 3)."""
         if self.listed:
-            ci, pi, _ = self._structure(data)
+            _, sl = self._structure(data)
             A, Bm = self.problem.blocks(x, data)
-            U = _seg(torch.einsum("boki,bokj->boij", A, A), ci, self.C)
-            V = _seg(torch.einsum("boki,bokj->boij", Bm, Bm), pi, self.P)
+            U, V = obs_products.uv(A, Bm, sl)
             W = torch.einsum("boki,bokj->boij", A, Bm)
             return U, V, W
         A, Bm = _masked(*_obs_blocks(self.project, x, self.C, self.P), data)
@@ -454,9 +447,9 @@ class SchurBASolver(MatrixFreeSolver):
         """The list route's (S, reduce, lift) of :meth:`_grid_system`: X per
         observation, the pairs' blocks from ``ops.schur_pairs.accumulate``
         placed in the lower triangle with blockdiag(U), then mirrored."""
-        ci, pi, pp = self._structure(data)
-        Bt, C, P, cd = U.shape[0], self.C, self.P, self.cd
-        X = torch.einsum("boij,bojk->boik", W, Vinv[:, pi])
+        pp, sl = self._structure(data)
+        Bt, C, cd = U.shape[0], self.C, self.cd
+        X = torch.einsum("boij,bojk->boik", W, Vinv[:, sl.pt_idx])
         M = U.new_zeros((Bt, C, cd, C, cd))
         diag = torch.arange(C, device=U.device)
         for b in range(Bt):
@@ -470,10 +463,10 @@ class SchurBASolver(MatrixFreeSolver):
             S = S + Dc
 
         def reduce(bp):
-            return _seg((X * bp[:, pi][:, :, None, :]).sum(-1), ci, C)
+            return obs_products.reduce(X, bp, sl)
 
         def lift(zc):
-            return _seg((W * zc[:, ci][..., None]).sum(-2), pi, P)
+            return obs_products.lift(W, zc, sl)
 
         return S, reduce, lift
 

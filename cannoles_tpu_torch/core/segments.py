@@ -161,11 +161,14 @@ def counters() -> dict:
     the bank stores' batched copies (``"bank_copy"``, launches, and
     ``("bank_copy", "entries")`` and ``("bank_copy", "left")``, the pairs
     folded into them and left to ``copy_``), the Schur pair kernel's
-    launches (``"schur_pairs"``), and the counts of ``utils/spans.py``:
+    launches (``"schur_pairs"``), the list route's products over
+    observations (``"obs_products"``, the kernel's launches, and
+    ``("obs_products", kind)``, the product calls of each kind on any
+    device), and the counts of ``utils/spans.py``:
     ``"host_syncs"``, their sum, and ``("host_syncs", site)``,
     ``("all_false", site)``, ``("rescue_lanes", stage)`` and ``("schur",
     "assemble" | "pairs")``."""
-    from ..ops import block_chol, fused_ldlt, schur_pairs
+    from ..ops import block_chol, fused_ldlt, obs_products, schur_pairs
 
     return {
         "fused_ldlt": fused_ldlt.LAUNCHES,
@@ -175,6 +178,8 @@ def counters() -> dict:
         "bank_copy": bank_copy.LAUNCHES,
         **{("bank_copy", k): n for k, n in bank_copy.COUNTS.items()},
         "schur_pairs": schur_pairs.LAUNCHES,
+        "obs_products": obs_products.LAUNCHES,
+        **{("obs_products", k): n for k, n in obs_products.CALLS.items()},
         "host_syncs": sum(spans.SYNCS.values()),
         **{(kind, k): n for kind, d in spans.COUNTS.items() for k, n in d.items()},
     }
@@ -202,14 +207,16 @@ def _credit(delta: dict):
 
 def restore_counters(before: dict):
     """Put the counters back to ``counters()``'s reading."""
-    from ..ops import block_chol, fused_ldlt, schur_pairs
+    from ..ops import block_chol, fused_ldlt, obs_products, schur_pairs
 
     fused_ldlt.LAUNCHES = before["fused_ldlt"]
     schur_pairs.LAUNCHES = before["schur_pairs"]
     block_chol.FUSED_LAUNCHES = before["chol_fused"]
     block_chol.BLOCK_LAUNCHES = before["chol_block"]
     bank_copy.LAUNCHES = before["bank_copy"]
-    by_kind = {"fused_ldlt": fused_ldlt.BY_SHAPE, "bank_copy": bank_copy.COUNTS, **spans.COUNTS}
+    obs_products.LAUNCHES = before["obs_products"]
+    by_kind = {"fused_ldlt": fused_ldlt.BY_SHAPE, "bank_copy": bank_copy.COUNTS, "obs_products": obs_products.CALLS,
+               **spans.COUNTS}
     for d in by_kind.values():
         d.clear()
     for k, n in before.items():

@@ -58,12 +58,16 @@ _SOURCES = {
     },
 }
 
-# built at first use by ``load_source``: the Schur engine's pair kernel
-# (core/ba.py on an observation list)
+# built at first use by ``load_source``: the Schur engine's pair kernel and
+# its products over observations (core/ba.py on an observation list)
 _ON_USE = {
     "schur_pairs.cu": {
         name: [_P, _P, _P, _P, _P, _I, _I, _P, _P]
         for name in ("cannoles_schur_pairs_f32", "cannoles_schur_pairs_f64")
+    },
+    "obs_products.cu": {
+        name: [_I] * 6 + [_P] * 13
+        for name in ("cannoles_obs_products_f32", "cannoles_obs_products_f64")
     },
 }
 

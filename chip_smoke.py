@@ -125,7 +125,23 @@ phase 25, before the pool, since it times the card:
    float32, cd = 9 the kernel, its plain version and the library route
    (``bmm`` + ``index_add_``) timed with CUDA events, beside the bound.
 
-Phase 23 (the routes' peak device memory) runs after phase 26, before the
+Phase 27 (the list route's products over observations,
+``ops/obs_products.py``) runs after phase 26, before the pool, since it
+times the card:
+
+27. the kernel on BAL Dubrovnik-356's lists (``SCHUR_PAIRS_SCENE``, built
+   on the card), each kind (``jv``, ``jtw``, ``reduce``, ``lift``, ``uv``)
+   with random blocks in the forward-mode Jacobian's layout, float32 at
+   cd = 9 and 6 and float64 at cd = 9: every entry within ``OBS_BAR`` of the
+   sum of its terms' magnitudes from the plain version, bit-equal across
+   two launches, each launch counted; at float32, cd = 9 each kind's
+   kernel, plain version (the einsum + ``index_put_`` chain) and library
+   route (the einsums + ``index_add_``, float atomics) timed with CUDA
+   events, beside the kind's byte bound; then one float32 LM solve of the
+   scene (``bal_scene`` at seed 0): every product call of every kind a
+   launch (engagement 1).
+
+Phase 23 (the routes' peak device memory) runs after phase 27, before the
 pool:
 
 23. ``large_rung_problem(m, 1024)`` (float32, Gauss–Newton, condensed,
@@ -2721,6 +2737,139 @@ def phase_schur_pairs(dev, scene=SCHUR_PAIRS_SCENE, cases=SCHUR_PAIRS_CASES):
     return out
 
 
+# the products kernel's (dtype, cd) cases, the first the main path's and
+# the one timed, and the bars on |kernel - plain| over the sum of the terms'
+# magnitudes, entry by entry
+OBS_CASES = ((torch.float32, 9), (torch.float32, 6), (torch.float64, 9))
+OBS_BAR = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _obs_inputs(sl, cd, dtype, dev, g):
+    """Random inputs of every kind: A and Bm as the forward-mode Jacobian
+    leaves them (views of one (n_obs, cd + 3, 2) record an observation), X,
+    W and the vectors contiguous."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=dtype, device=dev)
+
+    n_obs = sl.n_obs
+    J = rnd(1, n_obs, cd + 3, 2).transpose(-1, -2)
+    A, Bm = J[..., :cd], J[..., cd:]
+    return {"jv": (A, Bm, rnd(1, cd * sl.n_cams + 3 * sl.n_pts)), "jtw": (A, Bm, rnd(1, 2 * n_obs)),
+            "reduce": (rnd(1, n_obs, cd, 3), rnd(1, sl.n_pts, 3)),
+            "lift": (rnd(1, n_obs, cd, 3), rnd(1, sl.n_cams, cd)), "uv": (A, Bm)}
+
+
+def _obs_bound(kind, sl, cd, dtype):
+    """A kind's least time (ms): every block, index list, vector and output
+    read or written once (each observation's A and Bm 2·(cd + 3) items,
+    X or W 3·cd, a camera or point index or order entry 4 bytes, each CSR
+    start 4 bytes); two operations a multiply-add."""
+    item = torch.finfo(dtype).bits // 8
+    n, C, P = sl.n_obs, sl.n_cams, sl.n_pts
+    N = cd * C + 3 * P
+    ab, xw = 2 * (cd + 3) * n, 3 * cd * n
+    items, ints, flops = {
+        "jv": (ab + N + 2 * n, 2 * n, 4 * (cd + 3) * n),
+        "jtw": (ab + 2 * n + N, 2 * n + C + P + 2, 4 * (cd + 3) * n),
+        "reduce": (xw + 3 * P + cd * C, 2 * n + C + 1, 6 * cd * n),
+        "lift": (xw + cd * C + 3 * P, 2 * n + P + 1, 6 * cd * n),
+        "uv": (ab + cd * cd * C + 9 * P, 2 * n + C + P + 2, 4 * (cd * (cd + 1) // 2 + 6) * n),
+    }[kind]
+    return _bound(items * item + 4 * ints, flops, dtype)
+
+
+def _obs_library(kind, args, sl):
+    """The library route of a kind: the plain version's einsums with each
+    segment sum by ``index_add_`` (float atomics, in no fixed order)."""
+    from cannoles_tpu_torch.ops import obs_products
+
+    def seg(values, index, n):
+        v = values.transpose(0, 1)
+        return v.new_zeros((n, *v.shape[1:])).index_add_(0, index, v).transpose(0, 1)
+
+    kept, obs_products._seg = obs_products._seg, seg
+    try:
+        return getattr(obs_products, f"plain_{kind}")(*args, sl)
+    finally:
+        obs_products._seg = kept
+
+
+def phase_obs_products(dev, scene=SCHUR_PAIRS_SCENE, cases=OBS_CASES):
+    """Phase 27: the list route's products over observations
+    (``ops/obs_products.py``) on BAL Dubrovnik-356's lists, built on the
+    card.  Each kind against its plain version on random inputs of each
+    case: every entry within ``OBS_BAR`` of the sum of its terms' magnitudes
+    (the plain version on the inputs' magnitudes); bit-equal across two
+    launches; one launch counted per launch.  At the first case each kind's
+    kernel, plain version and library route are timed with CUDA events,
+    beside its byte bound.  Then one float32 LM solve of the scene: the
+    product calls of every kind and the launches over them."""
+    from cannoles_tpu_torch.core import segments
+    from cannoles_tpu_torch.core.ba import SchurBASolver
+    from cannoles_tpu_torch.models.bal import bal_scene, draw_scene
+    from cannoles_tpu_torch.ops import obs_products
+
+    C, P, n_obs = scene
+    sc = draw_scene(C, P, n_obs, seed=0)
+    sl = obs_products.lists(sc["cam_idx"].to(dev), sc["pt_idx"].to(dev), C, P)
+    out = dict(shape=f"{C} cameras, {P:,} points, {n_obs:,} observations", cases=[], kinds={})
+    g = torch.Generator(device=dev).manual_seed(27)
+    obs_products.LAUNCHES = 0
+    launched = 0
+    tup = (lambda t: t if isinstance(t, tuple) else (t,))
+    for k, (dtype, cd) in enumerate(cases):
+        case = dict(dtype=str(dtype)[6:], cd=cd, err_over_magnitude={}, bit_equal={})
+        for kind, args in _obs_inputs(sl, cd, dtype, dev, g).items():
+            fn = getattr(obs_products, kind)
+            plain = getattr(obs_products, f"plain_{kind}")
+            k1, k2 = fn(*args, sl), fn(*args, sl)
+            launched += 2
+            ref, mag = plain(*args, sl), plain(*(a.abs() for a in args), sl)
+            torch.cuda.synchronize()
+            case["err_over_magnitude"][kind] = max(
+                float(((a - r).abs() / m.clamp_min(torch.finfo(dtype).tiny)).max())
+                for a, r, m in zip(tup(k1), tup(ref), tup(mag)))
+            case["bit_equal"][kind] = all(torch.equal(a, b) for a, b in zip(tup(k1), tup(k2)))
+            if not case["bit_equal"][kind] or not case["err_over_magnitude"][kind] <= OBS_BAR[dtype]:
+                raise AssertionError(f"phase 27: the products kernel's {kind} at {case}: not bit-equal across "
+                                     f"launches or over {OBS_BAR[dtype]:g} of its terms' magnitudes")
+            if k == 0:
+                ms = _events_ms(lambda: fn(*args, sl), reps=20)
+                launched += 23
+                bound, by = _obs_bound(kind, sl, cd, dtype)
+                row = out["kinds"][kind] = dict(
+                    ms=ms, bound_ms=bound, bound_by=by, share=bound / ms,
+                    plain_ms=_events_ms(lambda: plain(*args, sl), reps=5),
+                    library_ms=_events_ms(lambda: _obs_library(kind, args, sl), reps=5))
+                _log(f"  {kind} ({case['dtype']} cd={cd}): kernel {ms:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                     f"einsum + index_add_ {row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}, "
+                     f"{100 * bound / ms:.2f}%)")
+            del k1, k2, ref, mag
+        out["cases"].append(case)
+    out["launches"] = obs_products.LAUNCHES
+    if out["launches"] != launched:
+        raise AssertionError(f"phase 27: {out['launches']} products-kernel launches counted for {launched} made")
+    _log(f"  products kernel on {out['shape']}: {out['cases']}")
+
+    pb, _ = bal_scene(C, P, n_obs, seed=0, dtype=torch.float32, device=dev)
+    s = SchurBASolver(pb, C, P, method="lm", use_initial_multiplier=True)
+    s.solve(max_iter=50)  # warm: the lists, the pair plan, the kernels' first launches
+    c0 = segments.counters()
+    t0 = time.perf_counter()
+    st = s.solve(max_iter=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c1 = segments.counters()
+    calls = {kind: c1[("obs_products", kind)] - c0[("obs_products", kind)] for kind in obs_products.KINDS}
+    launches = c1["obs_products"] - c0["obs_products"]
+    out["solve"] = dict(status=st.status, iter=st.iter, nfact=st.solver_specific["nfact"], wall_ms=1e3 * wall,
+                        calls=calls, launches=launches, engagement=launches / max(sum(calls.values()), 1))
+    _log(f"  one solve of the scene: {out['solve']}")
+    if min(calls.values()) <= 0 or out["solve"]["engagement"] != 1.0:
+        raise AssertionError(f"phase 27: a solve's products did not all go through the kernel: {out['solve']}")
+    return out
+
+
 MEMORY_ROWS = (8192, 65536, 262144)
 MEMORY_RATIO_BAR = 1.25
 
@@ -2980,6 +3129,11 @@ def main() -> int:
     pairs = phase_schur_pairs(dev)
     torch.cuda.empty_cache()
 
+    _phase("phase 27: the list route's products over observations on BAL Dubrovnik-356's lists (kernel vs plain "
+           "version, times, one solve's engagement)")
+    products = phase_obs_products(dev)
+    torch.cuda.empty_cache()
+
     _phase("phase 23: peak device memory of the graph and eager routes, large_rung_problem(m, 1024) at m = "
            + ", ".join(f"{m:,}" for m in MEMORY_ROWS))
     memory = phase_memory(dev)
@@ -3112,6 +3266,12 @@ def main() -> int:
         "source": "cannoles_tpu_torch/csrc/schur_pairs.cu",
         "replaces": None,  # no TPU kernel: the JAX package's Schur engine takes the dense grid's einsum
         **pairs,
+    }, {
+        "name": "obs_products",
+        "route": "cuda",
+        "source": "cannoles_tpu_torch/csrc/obs_products.cu",
+        "replaces": None,  # no TPU kernel: the JAX package has no observation-list route
+        **products,
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},

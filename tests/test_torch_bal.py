@@ -1,6 +1,7 @@
 """PyTorch port, BAL bundle adjustment on an observation list
-(``models/bal.py``, the list route of ``core/ba.py``, ``ops/schur_pairs.py``)
-against the plain float64 reference ``tests/bal_plain.py`` on the CPU.
+(``models/bal.py``, the list route of ``core/ba.py``, ``ops/schur_pairs.py``,
+``ops/obs_products.py``) against the plain float64 reference
+``tests/bal_plain.py`` on the CPU.
 
 Scenes of 5 cameras, 80 points and 350 observations in float64; the list
 route on a full-visibility 6-parameter list against the grid route, which
@@ -31,7 +32,7 @@ from cannoles_tpu_torch.models.bal import (  # noqa: E402
     snavely_project,
     write_bal,
 )
-from cannoles_tpu_torch.ops import _native, schur_pairs  # noqa: E402
+from cannoles_tpu_torch.ops import _native, obs_products, schur_pairs  # noqa: E402
 
 C, P, N_OBS = 5, 80, 350
 F64 = torch.float64
@@ -270,3 +271,61 @@ def test_list_products_from_the_blocks_equal_the_transforms():
     A, _ = lp.blocks(x, d)
     assert lp.blocks(x, d)[0] is A and lp.blocks(x.clone(), d)[0] is not A
     assert lp.nvar == pb.nvar and lp.F is not None
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_segment_lists_equal_a_stable_sort_reference(shuffled):
+    """Each camera's and each point's observations, in ascending order: on
+    the scene's camera-sorted list and on the same list shuffled (camera
+    segments scattered too)."""
+    sc = draw_scene(C, P, N_OBS, seed=5)
+    ci, pi = sc["cam_idx"], sc["pt_idx"]
+    if shuffled:
+        perm = torch.randperm(N_OBS, generator=torch.Generator().manual_seed(2))
+        ci, pi = ci[perm], pi[perm]
+    sl = obs_products.lists(ci, pi, C, P)
+    for order, start, index, n in ((sl.cam_order, sl.cam_start, ci, C), (sl.pt_order, sl.pt_start, pi, P)):
+        assert order.dtype == start.dtype == torch.int32
+        ref = [o for seg in range(n) for o in range(N_OBS) if int(index[o]) == seg]
+        counts = [sum(1 for o in range(N_OBS) if int(index[o]) == seg) for seg in range(n)]
+        assert order.tolist() == ref
+        assert start.tolist() == np.concatenate([[0], np.cumsum(counts)]).tolist()
+    assert torch.equal(sl.cam, ci.to(torch.int32)) and torch.equal(sl.pt, pi.to(torch.int32))
+    assert sl.cam_idx is ci and sl.pt_idx is pi and (sl.n_cams, sl.n_pts, sl.n_obs) == (C, P, N_OBS)
+
+
+def test_obs_products_take_the_plain_version_on_the_cpu():
+    """On CPU tensors each kind is its plain version, bit for bit; each call
+    is counted under its kind and no launch is counted; a list-route solve
+    calls every kind, and the kernel's library is not built."""
+    pb, _, _ = _scene()
+    s = SchurBASolver(pb, C, P, method="lm")
+    d = _batched(pb)
+    g = torch.Generator().manual_seed(12)
+    x = pb.x0[None] + 1e-3 * torch.randn((1, pb.nvar), generator=g, dtype=F64)
+    A, Bm = s.problem.blocks(x, d)
+    _, sl = s._structure(d)
+    X = torch.randn((1, N_OBS, 9, 3), generator=g, dtype=F64)
+    cases = {
+        "jv": (A, Bm, torch.randn((1, pb.nvar), generator=g, dtype=F64), sl),
+        "jtw": (A, Bm, torch.randn((1, pb.nequ), generator=g, dtype=F64), sl),
+        "reduce": (X, torch.randn((1, P, 3), generator=g, dtype=F64), sl),
+        "lift": (X, torch.randn((1, C, 9), generator=g, dtype=F64), sl),
+        "uv": (A, Bm, sl),
+    }
+    for kind, args in cases.items():
+        c0 = segments.counters()
+        got = getattr(obs_products, kind)(*args)
+        want = getattr(obs_products, f"plain_{kind}")(*args)
+        c1 = segments.counters()
+        for a, b in zip(got if kind == "uv" else (got,), want if kind == "uv" else (want,)):
+            assert torch.equal(a, b), kind
+        assert c1[("obs_products", kind)] == c0[("obs_products", kind)] + 1
+        assert c1["obs_products"] == c0["obs_products"] == obs_products.LAUNCHES
+    c0 = segments.counters()
+    s.solve(max_iter=1)
+    c1 = segments.counters()
+    assert all(c1[("obs_products", k)] > c0[("obs_products", k)] for k in obs_products.KINDS)
+    assert c1["obs_products"] == c0["obs_products"]
+    assert "obs_products.cu" not in _native._ON_USE_LIBS
+    assert "obs_products.cu" not in _native._SOURCES and "obs_products.cu" in _native._ON_USE

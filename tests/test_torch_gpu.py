@@ -1016,3 +1016,138 @@ def test_bal_solve_on_card_against_the_float64_reference(cuda):
     assert (bp.cost(x, sc) - f_ref) / f_ref <= 1e-3
     tol = bp.tolerance(x0, sc, float(torch.finfo(torch.float32).eps))
     assert bp.measure(x, sa.r[0].to(torch.float64), sa.lam[0].to(torch.float64), sc) <= 2 * tol
+
+
+# every entry of the kernel within this share of the sum of its terms'
+# magnitudes from the plain version: the two sum in other orders (the plain
+# version after cuBLAS's contracted products, the kernel by a fixed tree
+# with each product rounded), and either order's rounding is a few units of
+# the last place of that sum, times at most the segment's length under a
+# random walk, far below the bar at 3,500 terms a camera
+_OBS_BAR = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _obs_inputs(sl, n_obs, cd, dt, dev, lanes, seed, layout):
+    """Random blocks and vectors of every kind: A and Bm as the forward-mode
+    Jacobian leaves them (views of one (n_obs, cd + 3, 2) record an
+    observation) or contiguous; X and W contiguous."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=dt, device=dev)
+
+    J = rnd(lanes, n_obs, cd + 3, 2).transpose(-1, -2)
+    A, Bm = J[..., :cd], J[..., cd:]
+    if layout == "contiguous":
+        A, Bm = A.contiguous(), Bm.contiguous()
+    n = cd * sl.n_cams + 3 * sl.n_pts
+    X, W = rnd(lanes, n_obs, cd, 3), rnd(lanes, n_obs, cd, 3)
+    return {
+        "jv": (A, Bm, rnd(lanes, n)),
+        "jtw": (A, Bm, rnd(lanes, 2 * n_obs)),
+        "reduce": (X, rnd(lanes, sl.n_pts, 3)),
+        "lift": (W, rnd(lanes, sl.n_cams, cd)),
+        "uv": (A, Bm),
+    }
+
+
+def _obs_check(kind, args, sl, dt):
+    """(largest |kernel - plain| over the terms' magnitudes, bit-equal
+    across two launches) of one kind."""
+    from cannoles_tpu_torch.ops import obs_products
+
+    k1 = getattr(obs_products, kind)(*args, sl)
+    k2 = getattr(obs_products, kind)(*args, sl)
+    ref = getattr(obs_products, f"plain_{kind}")(*args, sl)
+    mag = getattr(obs_products, f"plain_{kind}")(*(a.abs() for a in args), sl)
+    torch.cuda.synchronize()
+    tup = (lambda t: t if isinstance(t, tuple) else (t,))
+    worst = max(float(((a - r).abs() / m.clamp_min(torch.finfo(dt).tiny)).max())
+                for a, r, m in zip(tup(k1), tup(ref), tup(mag)))
+    return worst, all(torch.equal(a, b) for a, b in zip(tup(k1), tup(k2)))
+
+
+@pytest.mark.parametrize("cd", [9, 6])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_obs_products_kernel_matches_plain_at_dubrovnik_size_on_card(cuda, dtype, cd):
+    """The products kernel at BAL Dubrovnik-356's lists (356 cameras,
+    226,730 points, 1,255,268 observations), each of its five kinds on both
+    block layouts: against the plain version within ``_OBS_BAR`` of the
+    terms' magnitudes, bit-equal across two launches, each launch counted."""
+    from cannoles_tpu_torch.models.bal import draw_scene
+    from cannoles_tpu_torch.ops import obs_products
+
+    dt = getattr(torch, dtype)
+    C, P, n_obs = 356, 226_730, 1_255_268
+    sc = draw_scene(C, P, n_obs, seed=0)
+    sl = obs_products.lists(sc["cam_idx"].to(cuda), sc["pt_idx"].to(cuda), C, P)
+    before, made = obs_products.LAUNCHES, 0
+    for layout in ("forward", "contiguous"):
+        for kind, args in _obs_inputs(sl, n_obs, cd, dt, cuda, 1, 27, layout).items():
+            if layout == "contiguous" and kind in ("reduce", "lift"):
+                continue
+            worst, equal = _obs_check(kind, args, sl, dt)
+            made += 2
+            assert equal, (kind, layout)
+            assert worst <= _OBS_BAR[dt], (kind, layout, worst)
+    assert obs_products.LAUNCHES == before + made
+    with pytest.raises(ValueError, match="6 or 9"):
+        A = torch.zeros((1, n_obs, 2, 4), dtype=dt, device=cuda)
+        obs_products.uv(A, A[..., :3], sl)
+
+
+def test_obs_products_kernel_takes_lanes_on_card(cuda):
+    """Three lanes of one observation list (a tenth of Dubrovnik-356, the
+    list shuffled, so that camera segments are scattered too), vectors that
+    are strided views: each kind against its plain version."""
+    from cannoles_tpu_torch.models.bal import draw_scene
+    from cannoles_tpu_torch.ops import obs_products
+
+    C, P, n_obs = 36, 22_673, 125_527
+    sc = draw_scene(C, P, n_obs, seed=1)
+    perm = torch.randperm(n_obs, generator=torch.Generator().manual_seed(3))
+    sl = obs_products.lists(sc["cam_idx"][perm].to(cuda), sc["pt_idx"][perm].to(cuda), C, P)
+    for dt in (torch.float32, torch.float64):
+        args = _obs_inputs(sl, n_obs, 9, dt, cuda, 3, 5, "forward")
+        wide = torch.randn((3, P, 5), dtype=dt, device=cuda)
+        args["reduce"] = (args["reduce"][0], wide[..., 1:4])
+        for kind, a in args.items():
+            worst, equal = _obs_check(kind, a, sl, dt)
+            assert equal and worst <= _OBS_BAR[dt], (kind, dt, worst)
+
+
+def test_list_route_solve_on_card_takes_the_obs_products_kernel(cuda, monkeypatch):
+    """One LM solve of a tenth of Dubrovnik-356 (36 cameras, 22,673 points,
+    125,527 observations, float32) on the card through the kernel: the
+    status of the same solve with the plain versions on the card, the cost
+    within 1e-3 of it (the cell's cost_gap limit: both stop at the stated
+    √eps-relative first-order test, in other roundings), every product of
+    the solve a launch ("obs_products" against the calls of every kind,
+    ("obs_products", kind): 100%)."""
+    from cannoles_tpu_torch.core import segments
+    from cannoles_tpu_torch.core.ba import SchurBASolver
+    from cannoles_tpu_torch.core.solver import _add_batch_axis
+    from cannoles_tpu_torch.models.bal import bal_scene
+    from cannoles_tpu_torch.ops import obs_products
+
+    C, P = 36, 22_673
+    pb, _ = bal_scene(C, P, 125_527, seed=0, dtype=torch.float32, device=cuda)
+    data = _add_batch_axis(pb.data, cuda)
+
+    def solve():
+        s = SchurBASolver(pb, C, P, method="lm", use_initial_multiplier=True)
+        st = s.solve(max_iter=50)
+        return st, 0.5 * float((pb.F(s.last_state.x, data).double() ** 2).sum())
+
+    c0 = segments.counters()
+    st, f = solve()
+    c1 = segments.counters()
+    calls = {k: c1[("obs_products", k)] - c0[("obs_products", k)] for k in obs_products.KINDS}
+    assert all(n > 0 for n in calls.values()), calls
+    assert c1["obs_products"] - c0["obs_products"] == sum(calls.values())
+    for kind in obs_products.KINDS:
+        monkeypatch.setattr(obs_products, kind, getattr(obs_products, f"plain_{kind}"))
+    st_plain, f_plain = solve()
+    assert segments.counters()["obs_products"] == c1["obs_products"]
+    assert st.status == st_plain.status == "first_order"
+    assert abs(f - f_plain) <= 1e-3 * f_plain
