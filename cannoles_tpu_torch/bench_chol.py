@@ -111,16 +111,18 @@ def _inputs(N: int, device):
 
 def row(N: int, device, plain: bool = True) -> dict:
     """One N: times, launches, bound and the solve check."""
+    from .core import segments
     from .ops import block_chol as bc
 
     A, b = _inputs(N, device)
     A1, b1 = A[None], b[None]
     on_card = A.device.type == "cuda"
-    l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+    c0 = segments.counters()
     fac = bc.block_cholesky(A1, TOL, NB)
     x = bc.block_cho_solve(fac, b1)[0]
     x_ref = torch.cholesky_solve(b[:, None], torch.linalg.cholesky(A))[:, 0]
-    launches = (bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1])
+    c1 = segments.counters()
+    launches = tuple(c1[k] - c0[k] for k in ("chol_fused", "chol_block"))
     rel_err = float((x - x_ref).abs().max() / (x_ref.abs().max() + 1e-30))
     route = "fused" if bc.uses_fused(-(-N // NB) * NB, torch.float32) else "blocked"
     bound, by = bound_ms(N)

@@ -63,7 +63,7 @@ from ..ops import obs_products, schur_pairs
 from ..params import Params
 from ..problem import NLSProblem
 from ..utils.linalg import norm_2
-from ..utils.spans import count_schur, span
+from ..utils.spans import count, span
 from .matfree import MatrixFreeSolver, MFState
 from .solver import _add_batch_axis, _cholesky_nan
 
@@ -456,7 +456,7 @@ class SchurBASolver(MatrixFreeSolver):
             T = schur_pairs.accumulate(X[b].contiguous(), W[b].contiguous(), pp)
             M[b][pp.block_cam[:, 0], :, pp.block_cam[:, 1], :] = -T
             M[b][diag, :, diag, :] += U[b]
-        count_schur("pairs", Bt * pp.n_pairs)
+        count(("schur", "pairs"), Bt * pp.n_pairs)
         Ml = M.reshape(Bt, cd * C, cd * C)
         S = torch.tril(Ml) + torch.tril(Ml, -1).mT
         if Dc is not None:
@@ -495,7 +495,7 @@ class SchurBASolver(MatrixFreeSolver):
             # reduced camera system S = blockdiag(U) + Dc − Σₚ X Wᵀ, (cd·C, cd·C)
             S, reduce, lift = (self._list_system(U, Vinv, W, Dc, data) if self.listed
                                else self._grid_system(U, Vinv, W, Dc))
-            count_schur("assemble", Bt)
+            count(("schur", "assemble"), Bt)
 
         with span("cannoles.schur.factor"):
             # Jacobi-scaled camera system: unit diagonal before the Cholesky

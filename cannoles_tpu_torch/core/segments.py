@@ -25,9 +25,8 @@ changes no result).
   before it), so the graphs of one solver share one memory pool
   (``Bank(pool=)``), whatever order they replay in.
 
-The kernel launch counters of ``ops`` count at capture time, where nothing
-runs, so a capture records what it launched and each replay adds it.
-``counters()`` also reads the host-sync counts of ``utils/spans.py``.
+The counters of ``utils/spans.py`` count at capture time, where nothing
+runs, so a capture records what it counted and each replay adds it.
 Each run of a segment is a span, ``cannoles.replay``, ``cannoles.capture``
 or ``cannoles.eager``, with the segment's name in its args; the bank keeps
 the name of its last segment (``Bank.last``), whose flags the next host
@@ -156,72 +155,36 @@ def load(bank: Bank, adopt=(), **entries):
 
 
 def counters() -> dict:
-    """The process's counters: the custom kernels' launches by name (and
-    the fused LDLT kernel's by (N, B, dtype) under ``("fused_ldlt", shape)``),
-    the bank stores' batched copies (``"bank_copy"``, launches, and
-    ``("bank_copy", "entries")`` and ``("bank_copy", "left")``, the pairs
-    folded into them and left to ``copy_``), the Schur pair kernel's
-    launches (``"schur_pairs"``), the list route's products over
-    observations (``"obs_products"``, the kernel's launches, and
-    ``("obs_products", kind)``, the product calls of each kind on any
-    device), and the counts of ``utils/spans.py``:
-    ``"host_syncs"``, their sum, and ``("host_syncs", site)``,
+    """The process's counters (``utils/spans.py``), and ``"host_syncs"``,
+    the sum of the ``("host_syncs", site)`` counts: the custom kernels'
+    launches by name (the fused LDLT kernel's also by (N, B) under
+    ``("fused_ldlt", (N, B))``), the bank stores' batched copies
+    (``"bank_copy"``, launches, and ``("bank_copy", "entries")`` and
+    ``("bank_copy", "left")``, the pairs folded into them and left to
+    ``copy_``), the Schur pair kernel's launches (``"schur_pairs"``), the
+    list route's products over observations (``"obs_products"``, the
+    kernel's launches, and ``("obs_products", kind)``, the product calls of
+    each kind on any device), and the solver's ``("host_syncs", site)``,
     ``("all_false", site)``, ``("rescue_lanes", stage)`` and ``("schur",
     "assemble" | "pairs")``."""
-    from ..ops import block_chol, fused_ldlt, obs_products, schur_pairs
-
-    return {
-        "fused_ldlt": fused_ldlt.LAUNCHES,
-        "chol_fused": block_chol.FUSED_LAUNCHES,
-        "chol_block": block_chol.BLOCK_LAUNCHES,
-        **{("fused_ldlt", k): n for k, n in fused_ldlt.BY_SHAPE.items()},
-        "bank_copy": bank_copy.LAUNCHES,
-        **{("bank_copy", k): n for k, n in bank_copy.COUNTS.items()},
-        "schur_pairs": schur_pairs.LAUNCHES,
-        "obs_products": obs_products.LAUNCHES,
-        **{("obs_products", k): n for k, n in obs_products.CALLS.items()},
-        "host_syncs": sum(spans.SYNCS.values()),
-        **{(kind, k): n for kind, d in spans.COUNTS.items() for k, n in d.items()},
-    }
+    c = dict(spans.COUNTERS)
+    c["host_syncs"] = sum(n for k, n in spans.COUNTERS.items() if isinstance(k, tuple) and k[0] == "host_syncs")
+    return c
 
 
 def _credit(delta: dict):
-    """Add a replayed graph's launches and copied pairs (``_capture``'s
-    delta)."""
-    from ..ops import block_chol, fused_ldlt
-
+    """Add what a replayed graph's capture counted (``_capture``'s delta),
+    but for the derived ``"host_syncs"``."""
+    c = spans.COUNTERS
     for k, n in delta.items():
-        if k == "fused_ldlt":
-            fused_ldlt.LAUNCHES += n
-        elif k == "chol_fused":
-            block_chol.FUSED_LAUNCHES += n
-        elif k == "chol_block":
-            block_chol.BLOCK_LAUNCHES += n
-        elif k == "bank_copy":
-            bank_copy.LAUNCHES += n
-        elif k[0] == "bank_copy":
-            bank_copy.COUNTS[k[1]] += n
-        elif k[0] == "fused_ldlt":
-            fused_ldlt.BY_SHAPE[k[1]] = fused_ldlt.BY_SHAPE.get(k[1], 0) + n
+        if k != "host_syncs":
+            c[k] = c.get(k, 0) + n
 
 
 def restore_counters(before: dict):
     """Put the counters back to ``counters()``'s reading."""
-    from ..ops import block_chol, fused_ldlt, obs_products, schur_pairs
-
-    fused_ldlt.LAUNCHES = before["fused_ldlt"]
-    schur_pairs.LAUNCHES = before["schur_pairs"]
-    block_chol.FUSED_LAUNCHES = before["chol_fused"]
-    block_chol.BLOCK_LAUNCHES = before["chol_block"]
-    bank_copy.LAUNCHES = before["bank_copy"]
-    obs_products.LAUNCHES = before["obs_products"]
-    by_kind = {"fused_ldlt": fused_ldlt.BY_SHAPE, "bank_copy": bank_copy.COUNTS, "obs_products": obs_products.CALLS,
-               **spans.COUNTS}
-    for d in by_kind.values():
-        d.clear()
-    for k, n in before.items():
-        if isinstance(k, tuple):
-            by_kind[k[0]][k[1]] = n
+    spans.COUNTERS.clear()
+    spans.COUNTERS.update((k, n) for k, n in before.items() if k != "host_syncs")
 
 
 class _Graph:

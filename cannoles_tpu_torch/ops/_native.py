@@ -1,16 +1,24 @@
-"""Build and load the package's CUDA kernels (``csrc/*.cu``).
+"""Build and load the package's native libraries (``csrc/``).
 
-Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-of its own with a plain C interface, loaded with ctypes; the ``nvcc``
-processes of all sources run at once.  The build runs at first use, into
+One routine builds every source into a shared library of its own with a
+plain C interface, loaded with ctypes: a CUDA kernel (``*.cu``) with
+``nvcc`` for ``sm_90a`` and :data:`NVCC_FLAGS`, host C++ (``*.cpp``) with
+``g++`` and its caller's flags.  The build runs at first use, into
 ``cannoles_tpu_torch/_build/`` (git-ignored), under a file name keyed by a
-hash of the source and flags, so a fresh checkout builds everything it
-needs and a changed source is rebuilt.  A missing ``nvcc`` or a failed build
-raises with the compiler's output; nothing falls back.  Nothing is built
-when the package is imported.  ``load()`` builds the kernels of every
-solver's path; a kernel that only one engine reaches (``_ON_USE``) is built
-and loaded by ``load_source`` at that engine's first launch, so that the
-paths that never reach it do not wait for its build.
+hash of the source and flags, and for ``g++`` also of the host's CPU (model
+name and flags from ``/proc/cpuinfo``): the build directory may travel with
+a checkout to another machine, where a ``-march=native`` library built for
+this one could die on an illegal instruction.  So a fresh checkout builds
+everything it needs and a changed source is rebuilt.  A missing compiler or
+a failed build raises with the compiler's output; nothing falls back.
+Nothing is built when the package is imported.
+
+``load()`` builds the kernels of every solver's path (``_SOURCES``), their
+``nvcc`` processes all at once; a library that only one engine or backend
+reaches is built and loaded by :func:`library` at its first use, so that
+the paths that never reach it do not wait for its build.  Each wrapper in
+``ops/`` binds the C functions it calls (:func:`function`), with their
+argument types beside the call.
 """
 
 from __future__ import annotations
@@ -23,138 +31,134 @@ import shutil
 import subprocess
 import threading
 import time
-import types
 
-__all__ = ["load", "load_source", "BUILD_INFO"]
+__all__ = ["load", "library", "function", "lib_path", "build", "CSRC", "NVCC_FLAGS", "BUILD_INFO"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 # --fmad=false: no contracted multiply-adds, so the kernels' elementwise
 # arithmetic is the plain PyTorch versions' operation for operation.
-_FLAGS = [
+NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# the CUDA kernels of every solver's path, built together by ``load()``
+_SOURCES = ("fused_ldlt.cu", "block_chol.cu", "bank_copy.cu")
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# source -> {exported function: argtypes}; every function returns an int
-# (cudaGetLastError() after its launches, or a constant of the kernel)
-_SOURCES = {
-    "fused_ldlt.cu": {
-        **{
-            name: [_P, _P, _P, _P, _I, _I, _D, _I, _P]
-            for name in ("cannoles_fused_ldlt_f32", "cannoles_fused_ldlt_f64")
-        },
-        "cannoles_fused_ldlt_thread_max_n": [],
-    },
-    "block_chol.cu": {
-        name: [_P, _P, _P, _P, _I, _I, _I, _D, _P]
-        for name in ("cannoles_chol_f32", "cannoles_chol_f64")
-    },
-    "bank_copy.cu": {
-        "cannoles_bank_copy": [_P, _I, _I, _P],
-        "cannoles_bank_copy_cap": [],
-        "cannoles_bank_copy_stage_bytes": [],
-    },
-}
-
-# built at first use by ``load_source``: the Schur engine's pair kernel and
-# its products over observations (core/ba.py on an observation list)
-_ON_USE = {
-    "schur_pairs.cu": {
-        name: [_P, _P, _P, _P, _P, _I, _I, _P, _P]
-        for name in ("cannoles_schur_pairs_f32", "cannoles_schur_pairs_f64")
-    },
-    "obs_products.cu": {
-        name: [_I] * 6 + [_P] * 13
-        for name in ("cannoles_obs_products_f32", "cannoles_obs_products_f64")
-    },
-}
-
-_LOCK = threading.Lock()
-_LIB = None
-_ON_USE_LIBS: dict = {}
-# filled by the first load(): per source, the library path, the build
-# seconds (0 when cached) and ptxas's register/shared-memory report; and
-# the wall seconds of the whole (parallel) build
+_LOCK = threading.RLock()
+_LIBS: dict = {}  # source name -> its loaded CDLL (kept referenced while loaded)
+# per source built, the library path, the build seconds (0 when cached) and
+# the compiler's report (ptxas's registers and shared memory for nvcc); and
+# the wall seconds of the first load()'s (parallel) build
 BUILD_INFO: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _compiler(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+    if name == "nvcc":
+        cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+    raise RuntimeError(f"{name} not found on PATH: cannot build the host libraries")
 
 
-def _lib_path(src: pathlib.Path) -> pathlib.Path:
+def _cpu_id() -> str:
+    """The host CPU's model name and flags (what -march=native reads)."""
+    try:
+        text = pathlib.Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return os.uname().machine
+    keep = {}
+    for line in text.splitlines():
+        key, _, value = line.partition(":")
+        key = key.strip()
+        if key in ("model name", "flags", "Features", "CPU part") and key not in keep:
+            keep[key] = value.strip()
+    return repr(sorted(keep.items()))
+
+
+def _spec(src: pathlib.Path, flags=None):
+    """(compiler, flags) of a source: nvcc and ``NVCC_FLAGS`` for ``.cu``, g++
+    and ``flags`` otherwise."""
+    return ("nvcc", NVCC_FLAGS) if src.suffix == ".cu" else ("g++", list(flags))
+
+
+def lib_path(src: pathlib.Path, flags=None, build_dir: pathlib.Path = _BUILD_DIR) -> pathlib.Path:
+    """Where the library of ``src`` built with ``flags`` (``NVCC_FLAGS`` for
+    a ``.cu`` source) lives."""
+    compiler, flags = _spec(src, flags)
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
-    return _BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    if compiler == "g++":
+        h.update(_cpu_id().encode())
+    return pathlib.Path(build_dir) / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build(names) -> dict:
-    """Build every source of ``names`` not built yet, all nvcc processes at
-    once; returns {source name: library path}."""
-    libs, procs = {}, {}
+def build(sources, build_dir: pathlib.Path = _BUILD_DIR) -> list:
+    """Build every ``(source path, flags)`` of ``sources`` not built yet into
+    ``build_dir``, all compilers at once (each writes a temporary file,
+    renamed when it succeeds); returns the library paths."""
+    libs, procs = [], []
     t0 = time.perf_counter()
-    for name in names:
-        src = _PKG / "csrc" / name
-        lib = _lib_path(src)
-        libs[name] = lib
+    for src, flags in sources:
+        lib = lib_path(src, flags, build_dir)
+        libs.append(lib)
         if lib.exists():
-            BUILD_INFO[name] = dict(path=str(lib), seconds=0.0, ptxas="(cached)")
+            BUILD_INFO[src.name] = dict(path=str(lib), seconds=0.0, ptxas="(cached)")
             continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compiler, flags = _spec(src, flags)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        procs[name] = (proc, cmd, tmp, lib)
+        cmd = [_compiler(compiler), *flags, "-o", str(tmp), str(src)]
+        procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                      cmd, tmp, lib))
     failed = []
-    for name, (proc, cmd, tmp, lib) in procs.items():
+    for src, proc, cmd, tmp, lib in procs:
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+            failed.append(f"{pathlib.Path(cmd[0]).name} failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
             continue
         os.replace(tmp, lib)
-        BUILD_INFO[name] = dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=err)
+        BUILD_INFO[src.name] = dict(path=str(lib), seconds=time.perf_counter() - t0, ptxas=err)
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
 
 
-def _bind(libs: dict, table: dict) -> types.SimpleNamespace:
-    fns = {"_libs": []}  # the CDLLs stay referenced while loaded
-    for name, path in libs.items():
-        lib = ctypes.CDLL(str(path))
-        fns["_libs"].append(lib)
-        for fn_name, argtypes in table[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            fns[fn_name] = fn
-    return types.SimpleNamespace(**fns)
-
-
-def load() -> types.SimpleNamespace:
-    """The kernels' C functions as attributes, every library of
-    ``_SOURCES`` built on the first call."""
-    global _LIB
+def load() -> None:
+    """Build and load the libraries of ``_SOURCES`` (on the first call)."""
     with _LOCK:
-        if _LIB is None:
+        if _SOURCES[0] not in _LIBS:
             t0 = time.perf_counter()
-            _LIB = _bind(_build(_SOURCES), _SOURCES)
+            libs = [ctypes.CDLL(str(lib)) for lib in build([(CSRC / name, None) for name in _SOURCES])]
+            _LIBS.update(zip(_SOURCES, libs))
             BUILD_INFO["wall_seconds"] = time.perf_counter() - t0
-        return _LIB
 
 
-def load_source(name: str) -> types.SimpleNamespace:
-    """The C functions of one source of ``_ON_USE``, built and loaded on
-    its first call."""
+def library(name: str, flags=None) -> ctypes.CDLL:
+    """The library of ``csrc/<name>``, built and loaded on the first call: a
+    ``.cu`` source with ``NVCC_FLAGS`` (one of ``_SOURCES`` by ``load()``,
+    with the others), a ``.cpp`` source with ``g++`` and ``flags`` (one set
+    of flags a source)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
-        if name not in _ON_USE_LIBS:
-            _ON_USE_LIBS[name] = _bind(_build([name]), _ON_USE)
-        return _ON_USE_LIBS[name]
+        if name in _SOURCES:
+            load()
+        elif name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(build([(CSRC / name, flags)])[0]))
+        return _LIBS[name]
+
+
+def function(lib: ctypes.CDLL, name: str, argtypes, restype=ctypes.c_int):
+    """The C function ``name`` of ``lib``, with its argument and return
+    types declared."""
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn

@@ -22,20 +22,24 @@ first); the design note is at the top of that file.
   then ``copy_`` for the pairs left.  On the CPU it runs the plain version,
   :func:`plain`: a clone of every source that shares storage with a buffer
   written by the store, then one ``copy_`` a pair.
-* ``LAUNCHES`` counts the kernel's launches that succeeded, ``COUNTS`` the
-  pairs of a card's stores folded into them (``"entries"``) and left to
-  ``copy_`` (``"left"``); the plain version counts nothing.
-  ``core.segments.counters()`` reads them, a replayed graph adding what its
-  capture counted.
+* ``"bank_copy"`` counts the kernel's launches that succeeded,
+  ``("bank_copy", "entries")`` and ``("bank_copy", "left")`` the pairs of a
+  card's stores folded into them and left to ``copy_``; the plain version
+  counts nothing.  ``core.segments.counters()`` reads them, a replayed graph
+  adding what its capture counted.
 """
 
 from __future__ import annotations
 
 import array
+import functools
+from ctypes import c_int, c_void_p
 
 import torch
 
-__all__ = ["store", "plan", "plain", "CAP", "STAGE_BYTES", "CUT_BYTES", "LAUNCHES", "COUNTS"]
+from ..utils import spans
+
+__all__ = ["store", "plan", "plain", "CAP", "STAGE_BYTES", "CUT_BYTES"]
 
 # entries a launch: the kernel's descriptor, passed by value, must fit the
 # 4 KB kernel parameter space (the library's kCap)
@@ -50,9 +54,8 @@ STAGE_BYTES = 40 * 1024
 # beats the kernel's ~2.8
 CUT_BYTES = 16 << 20
 
-LAUNCHES = 0
-COUNTS = {"entries": 0, "left": 0}
-_FN = None  # the bound C function, see _function()
+_ENTRIES, _LEFT = ("bank_copy", "entries"), ("bank_copy", "left")
+spans.declare("bank_copy", _ENTRIES, _LEFT)
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -113,8 +116,8 @@ def store(pairs):
         plain(pairs, written)
         return
     launches, left = plan(pairs, written)
-    COUNTS["entries"] += len(pairs) - len(left)
-    COUNTS["left"] += len(left)
+    spans.count(_ENTRIES, len(pairs) - len(left))
+    spans.count(_LEFT, len(left))
     left = [(d, s.clone() if _storage(s) in written else s) for d, s in left]
     for one_block, items in launches:
         _launch(items, one_block)
@@ -129,25 +132,23 @@ def plain(pairs, written):
         d.copy_(s)
 
 
+@functools.lru_cache(maxsize=None)
 def _function():
     """The kernel's C function, bound on the first call (which builds the
     library); the library's limits must be this module's."""
-    global _FN
-    if _FN is None:
-        from . import _native
+    from . import _native
 
-        lib = _native.load()
-        limits = (lib.cannoles_bank_copy_cap(), lib.cannoles_bank_copy_stage_bytes())
-        if limits != (CAP, STAGE_BYTES):
-            raise RuntimeError(f"bank_copy: the library's limits {limits} are not ({CAP}, {STAGE_BYTES})")
-        _FN = lib.cannoles_bank_copy
-    return _FN
+    lib = _native.library("bank_copy.cu")
+    limits = (_native.function(lib, "cannoles_bank_copy_cap", [])(),
+              _native.function(lib, "cannoles_bank_copy_stage_bytes", [])())
+    if limits != (CAP, STAGE_BYTES):
+        raise RuntimeError(f"bank_copy: the library's limits {limits} are not ({CAP}, {STAGE_BYTES})")
+    return _native.function(lib, "cannoles_bank_copy", [c_void_p, c_int, c_int, c_void_p])
 
 
 def _launch(items, one_block: bool):
     """One launch of the kernel over ``items``, on the current stream of
-    the destinations' device, counted in ``LAUNCHES``."""
-    global LAUNCHES
+    the destinations' device, counted as ``"bank_copy"``."""
     dev = items[0][0].device
     table = array.array("q")
     for d, s in items:
@@ -163,4 +164,4 @@ def _launch(items, one_block: bool):
     if err != 0:
         raise RuntimeError(f"bank_copy: kernel launch failed with error {err} ({len(items)} entries, "
                            f"one_block={one_block})")
-    LAUNCHES += 1
+    spans.count("bank_copy")

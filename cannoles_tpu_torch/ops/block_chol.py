@@ -13,8 +13,9 @@ become two wrappers of the hand-written CUDA kernel in
 
 Both wrappers launch the same persistent cooperative kernel, once per
 call (a block is the case N = nb).  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.  ``BLOCK_LAUNCHES`` and
-``FUSED_LAUNCHES`` count the wrappers' launches.  The caller's matrix is
+CUDA tensor launches the kernel or raises.  ``"chol_block"`` and
+``"chol_fused"`` (``core.segments.counters()``) count the wrappers'
+launches.  The caller's matrix is
 never changed: the kernel works in place on the L output, which the wrapper
 allocates and fills.
 
@@ -33,9 +34,13 @@ in full float32 (TF32 is off, PyTorch's default), the TPU kernels'
 
 from __future__ import annotations
 
+import functools
+from ctypes import c_double, c_int, c_void_p
 from typing import NamedTuple
 
 import torch
+
+from ..utils import spans
 
 __all__ = [
     "BlockCholFactorization",
@@ -49,13 +54,9 @@ __all__ = [
     "chol_fused",
     "chol_fused_reference",
     "uses_fused",
-    "BLOCK_LAUNCHES",
-    "FUSED_LAUNCHES",
 ]
 
-# kernel launches since import (or since a caller reset them to 0)
-BLOCK_LAUNCHES = 0
-FUSED_LAUNCHES = 0
+spans.declare("chol_block", "chol_fused")
 
 _FUSED_MAX_BYTES = 1280 * 1280 * 4  # the TPU kernel's VMEM budget (pallas_chol.py:252)
 
@@ -144,8 +145,15 @@ def _check(name, A):
         raise ValueError(f"{name}: B={A.shape[0]} outside 1..2**31-1 (the kernel's int batch)")
 
 
-def _fn(lib, stem, dtype):
-    return getattr(lib, f"{stem}_{'f32' if dtype == torch.float32 else 'f64'}")
+@functools.lru_cache(maxsize=None)
+def _function(dtype):
+    """The kernel's C function for ``dtype``, bound on the first call (which
+    builds the library)."""
+    from . import _native
+
+    lib = _native.library("block_chol.cu")
+    return _native.function(lib, f"cannoles_chol_{'f32' if dtype == torch.float32 else 'f64'}",
+                            [c_void_p] * 4 + [c_int, c_int, c_int, c_double, c_void_p])
 
 
 def _launch(name, A, N, nb, tol):
@@ -157,9 +165,7 @@ def _launch(name, A, N, nb, tol):
     Linv = A.new_empty((B, N // nb, nb, nb))
     d = A.new_empty((B, N))
     scratch = A.new_empty((B, max(N * nb, 32 * 32)))  # the kernel's staging and products
-    from . import _native
-
-    fn = _fn(_native.load(), "cannoles_chol", A.dtype)
+    fn = _function(A.dtype)
     with torch.cuda.device(A.device):
         err = fn(L.data_ptr(), Linv.data_ptr(), d.data_ptr(), scratch.data_ptr(), B, N, nb,
                  float(tol), torch.cuda.current_stream(A.device).cuda_stream)
@@ -173,7 +179,6 @@ def chol_block(A: torch.Tensor, tol: float):
     (counterpart of ``_chol_block``, the call of ``_chol_block_kernel``).  CPU
     tensors take the plain version; CUDA tensors launch the kernel, and
     anything it does not take raises."""
-    global BLOCK_LAUNCHES
     if A.device.type == "cpu":
         return chol_block_reference(A, tol)
     _check("chol_block", A)
@@ -181,7 +186,7 @@ def chol_block(A: torch.Tensor, tol: float):
     if nb > 1024:
         raise ValueError(f"chol_block: nb={nb} outside 1..1024")
     L, Linv, d = _launch("chol_block", A, nb, nb, tol)
-    BLOCK_LAUNCHES += 1
+    spans.count("chol_block")
     return L, Linv[:, 0], d
 
 
@@ -191,7 +196,6 @@ def chol_fused(A: torch.Tensor, tol: float, nb: int):
     built by ``_build_fused_call``).  CPU tensors take the plain
     version; CUDA tensors launch the kernel, and anything it does not take
     raises."""
-    global FUSED_LAUNCHES
     if A.device.type == "cpu":
         return chol_fused_reference(A, tol, nb)
     _check("chol_fused", A)
@@ -199,7 +203,7 @@ def chol_fused(A: torch.Tensor, tol: float, nb: int):
     if not (0 < nb <= 1024 and N % nb == 0):
         raise ValueError(f"chol_fused: N={N} is not a multiple of nb={nb} in 1..1024")
     out = _launch("chol_fused", A, N, nb, tol)
-    FUSED_LAUNCHES += 1
+    spans.count("chol_fused")
     return out
 
 

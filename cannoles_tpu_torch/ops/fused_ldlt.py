@@ -11,7 +11,8 @@ compile-time size gates are not carried over.
 
 * :func:`fused_ldlt_solve` is the wrapper the solver calls.  A CPU tensor
   runs :func:`fused_ldlt_solve_reference`; a CUDA tensor launches the kernel
-  or raises.  ``LAUNCHES`` counts the kernel's launches.
+  or raises.  It counts the kernel's launches as ``"fused_ldlt"`` and
+  ``("fused_ldlt", (N, B))`` (``core.segments.counters()``).
 * :func:`fused_ldlt_solve_reference` is the same elimination in batched
   tensor ops, step for step as the TPU kernel body (``pallas_ldlt.py:98-125``).
   It is what the CPU tests run and what the kernel is checked against.  It
@@ -27,9 +28,11 @@ from __future__ import annotations
 
 import functools
 import math
+from ctypes import c_double, c_int, c_void_p
 
 import torch
 
+from ..utils import spans
 from .ldlt import safe_inverse
 
 __all__ = [
@@ -37,15 +40,9 @@ __all__ = [
     "fused_ldlt_solve_reference",
     "max_n",
     "thread_max_n",
-    "LAUNCHES",
-    "BY_SHAPE",
 ]
 
-# kernel launches since import (or since a caller reset it to 0), and the
-# same by (N, B)
-LAUNCHES = 0
-BY_SHAPE: dict = {}
-_FNS = None  # the bound C functions, see _functions()
+spans.declare("fused_ldlt")
 
 _SMEM_BYTES = 232_448  # shared memory a block may use on sm_90 (227 KB)
 
@@ -96,19 +93,18 @@ def thread_max_n() -> int:
     block per system (the kernel's own constant, read from the library)."""
     from . import _native
 
-    return _native.load().cannoles_fused_ldlt_thread_max_n()
+    return _native.function(_native.library("fused_ldlt.cu"), "cannoles_fused_ldlt_thread_max_n", [])()
 
 
-def _functions() -> dict:
-    """The kernel's C functions by dtype, bound on the first call (which
+@functools.lru_cache(maxsize=None)
+def _function(dtype):
+    """The kernel's C function for ``dtype``, bound on the first call (which
     builds the library)."""
-    global _FNS
-    if _FNS is None:
-        from . import _native
+    from . import _native
 
-        lib = _native.load()
-        _FNS = {torch.float32: lib.cannoles_fused_ldlt_f32, torch.float64: lib.cannoles_fused_ldlt_f64}
-    return _FNS
+    lib = _native.library("fused_ldlt.cu")
+    return _native.function(lib, f"cannoles_fused_ldlt_{'f32' if dtype == torch.float32 else 'f64'}",
+                            [c_void_p] * 4 + [c_int, c_int, c_double, c_int, c_void_p])
 
 
 def _launch(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float, route: int):
@@ -116,7 +112,6 @@ def _launch(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float, route: int):
     N; 32, 64 or 128 force one thread per system with that many systems per
     block, -1 one block per system (``chip_smoke.py`` measures the threshold
     with them)."""
-    global LAUNCHES
     if W.device.type != "cuda" or rhs.device != W.device:
         raise ValueError(f"fused_ldlt_solve: W on {W.device}, rhs on {rhs.device}")
     if W.dtype not in (torch.float32, torch.float64) or rhs.dtype != W.dtype:
@@ -134,7 +129,7 @@ def _launch(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float, route: int):
     d = torch.empty_like(rhs)
     if B == 0 or N == 0:
         return x, d
-    fn = _functions()[W.dtype]
+    fn = _function(W.dtype)
     args = (W.data_ptr(), rhs.data_ptr(), x.data_ptr(), d.data_ptr(), B, N, float(eig_tol), route)
     if W.device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -143,6 +138,6 @@ def _launch(W: torch.Tensor, rhs: torch.Tensor, eig_tol: float, route: int):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ldlt_solve: kernel launch failed with CUDA error {err}")
-    LAUNCHES += 1
-    BY_SHAPE[(N, B)] = BY_SHAPE.get((N, B), 0) + 1
+    spans.count("fused_ldlt")
+    spans.count(("fused_ldlt", (N, B)))
     return x, d

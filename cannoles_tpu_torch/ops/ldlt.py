@@ -55,29 +55,22 @@ def safe_inverse(d, eig_tol: float):
 
 # the host library's functions by dtype, or False where it cannot be built
 _HOST = None
+_HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-ffp-contract=off", "-fno-fast-math"]
 
 
 def _host_functions():
     global _HOST
     if _HOST is None:
-        from . import cpp_ldlt
+        from . import _native
 
-        src = cpp_ldlt._PKG / "csrc" / "ldlt_exact.cpp"
-        flags = ["-O2", "-shared", "-fPIC", "-ffp-contract=off", "-fno-fast-math"]
         try:
-            lib = cpp_ldlt.lib_path(src, flags)
-            if not lib.exists():
-                cpp_ldlt._build(lib, src, flags)
-            cdll = ctypes.CDLL(str(lib))
+            lib = _native.library("ldlt_exact.cpp", _HOST_FLAGS)
         except (RuntimeError, OSError):
             _HOST = False
             return _HOST
-        P, Lg, I, D = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_double
-        fns = {torch.float64: cdll.cannoles_ldlt_exact_f64, torch.float32: cdll.cannoles_ldlt_exact_f32}
-        for fn in fns.values():
-            fn.restype = None
-            fn.argtypes = [P, P, P, Lg, I, D]
-        _HOST = fns
+        args = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_double]
+        _HOST = {dt: _native.function(lib, f"cannoles_ldlt_exact_{s}", args, restype=None)
+                 for dt, s in ((torch.float64, "f64"), (torch.float32, "f32"))}
     return _HOST
 
 

@@ -28,29 +28,30 @@ route used before the kernel (``plain_*``), so the CPU's bits are theirs.
 The blocks are read by their strides (a forward-mode Jacobian's views, as
 they come); the vectors are made contiguous.  The library is built at the
 first launch, not with the other kernels (``ops/_native.py``
-``load_source``).
+``library``).
 
 Counters (``core.segments.counters()``): ``"obs_products"`` the kernel's
-launches that succeeded (``LAUNCHES``), ``("obs_products", kind)`` the list
-route's product calls of each kind on any device (``CALLS``).  A card's
+launches that succeeded, ``("obs_products", kind)`` the list route's
+product calls of each kind on any device.  A card's
 call is one launch, so on a card the engagement, launches over calls, is 1.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
 from . import schur_pairs
 
 __all__ = ["SegmentLists", "lists", "jv", "jtw", "reduce", "lift", "uv", "plain_jv", "plain_jtw", "plain_reduce",
-           "plain_lift", "plain_uv", "KINDS", "LAUNCHES", "CALLS"]
+           "plain_lift", "plain_uv", "KINDS"]
 
 KINDS = ("jv", "jtw", "reduce", "lift", "uv")
-LAUNCHES = 0
-CALLS = dict.fromkeys(KINDS, 0)
+spans.declare("obs_products", *(("obs_products", k) for k in KINDS))
 # the kernel's grid takes the lanes as its y
 _MAX_LANES = 65_535
 
@@ -131,11 +132,13 @@ def plain_uv(A, Bm, sl: SegmentLists):
     return U, V
 
 
+@functools.lru_cache(maxsize=None)
 def _function(dtype):
     from . import _native
 
-    lib = _native.load_source("obs_products.cu")
-    return lib.cannoles_obs_products_f32 if dtype == torch.float32 else lib.cannoles_obs_products_f64
+    lib = _native.library("obs_products.cu")
+    return _native.function(lib, f"cannoles_obs_products_{'f32' if dtype == torch.float32 else 'f64'}",
+                            [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13)
 
 
 def _check_blocks(name, M, lanes, sl, rows, cols, dtype):
@@ -148,7 +151,6 @@ def _check_blocks(name, M, lanes, sl, rows, cols, dtype):
 def _launch(kind: str, m1, m2, vec, out1, out2, sl: SegmentLists):
     """One launch of kind ``kind`` on the card (``m1``'s device): raises if
     the inputs are not what the kernel takes or the launch is refused."""
-    global LAUNCHES
     dtype, dev, lanes = m1.dtype, m1.device, m1.shape[0]
     cd = m1.shape[-1] if kind in ("jv", "jtw", "uv") else m1.shape[-2]
     if dtype not in (torch.float32, torch.float64):
@@ -174,13 +176,13 @@ def _launch(kind: str, m1, m2, vec, out1, out2, sl: SegmentLists):
     if rc != 0:
         raise RuntimeError(f"obs_products launch failed (code {rc}): {kind} at {sl.n_obs} observations, cd = {cd}, "
                            f"{lanes} lanes")
-    LAUNCHES += 1
+    spans.count("obs_products")
 
 
 def jv(A, Bm, v, sl: SegmentLists):
     """J v (B, 2·n_obs) of v (B, cd·C + 3P): the plain version on the CPU,
     one launch on a card."""
-    CALLS["jv"] += 1
+    spans.count(("obs_products", "jv"))
     if A.device.type == "cpu":
         return plain_jv(A, Bm, v, sl)
     lanes, cd = A.shape[0], A.shape[-1]
@@ -197,7 +199,7 @@ def jv(A, Bm, v, sl: SegmentLists):
 def jtw(A, Bm, w, sl: SegmentLists):
     """Jᵀw (B, cd·C + 3P) of w (B, 2·n_obs): the plain version on the CPU,
     one launch on a card."""
-    CALLS["jtw"] += 1
+    spans.count(("obs_products", "jtw"))
     if A.device.type == "cpu":
         return plain_jtw(A, Bm, w, sl)
     lanes, cd = A.shape[0], A.shape[-1]
@@ -214,7 +216,7 @@ def jtw(A, Bm, w, sl: SegmentLists):
 def reduce(X, bp, sl: SegmentLists):
     """Σ_{o∈obs(c)} X_o b[p_o] (B, C, cd) of b (B, P, 3): the plain version
     on the CPU, one launch on a card."""
-    CALLS["reduce"] += 1
+    spans.count(("obs_products", "reduce"))
     if X.device.type == "cpu":
         return plain_reduce(X, bp, sl)
     lanes, cd = X.shape[0], X.shape[-2]
@@ -230,7 +232,7 @@ def reduce(X, bp, sl: SegmentLists):
 def lift(W, zc, sl: SegmentLists):
     """Σ_{o∈obs(p)} W_oᵀ z[c_o] (B, P, 3) of z (B, C, cd): the plain version
     on the CPU, one launch on a card."""
-    CALLS["lift"] += 1
+    spans.count(("obs_products", "lift"))
     if W.device.type == "cpu":
         return plain_lift(W, zc, sl)
     lanes, cd = W.shape[0], W.shape[-2]
@@ -246,7 +248,7 @@ def lift(W, zc, sl: SegmentLists):
 def uv(A, Bm, sl: SegmentLists):
     """(U (B, C, cd, cd), V (B, P, 3, 3)): the plain version on the CPU, one
     launch on a card."""
-    CALLS["uv"] += 1
+    spans.count(("obs_products", "uv"))
     if A.device.type == "cpu":
         return plain_uv(A, Bm, sl)
     lanes, cd = A.shape[0], A.shape[-1]

@@ -23,21 +23,25 @@ version, :func:`plain`: chunked ``bmm`` of the pairs' products and a
 segment sum in the pairs' sorted order (``index_put_`` with
 ``accumulate=True``, which sums duplicates in a fixed order on a card and
 on one CPU thread).  The library is built at the first launch, not with the other
-kernels (``ops/_native.py`` ``load_source``).
+kernels (``ops/_native.py`` ``library``).
 
-``LAUNCHES`` counts the kernel's launches that succeeded
-(``core.segments.counters()["schur_pairs"]``).
+``core.segments.counters()["schur_pairs"]`` counts the kernel's launches
+that succeeded.
 """
 
 from __future__ import annotations
 
+import functools
+from ctypes import c_int, c_void_p
 from typing import NamedTuple
 
 import torch
 
-__all__ = ["PairPlan", "plan", "accumulate", "plain", "segment_sum", "LAUNCHES"]
+from ..utils import spans
 
-LAUNCHES = 0
+__all__ = ["PairPlan", "plan", "accumulate", "plain", "segment_sum"]
+
+spans.declare("schur_pairs")
 # pairs of one bmm of the plain version
 CHUNK = 1 << 18
 
@@ -119,17 +123,18 @@ def plain(X: torch.Tensor, W: torch.Tensor, pp: PairPlan) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _function(dtype):
     from . import _native
 
-    lib = _native.load_source("schur_pairs.cu")
-    return lib.cannoles_schur_pairs_f32 if dtype == torch.float32 else lib.cannoles_schur_pairs_f64
+    lib = _native.library("schur_pairs.cu")
+    return _native.function(lib, f"cannoles_schur_pairs_{'f32' if dtype == torch.float32 else 'f64'}",
+                            [c_void_p] * 5 + [c_int, c_int, c_void_p, c_void_p])
 
 
 def accumulate(X: torch.Tensor, W: torch.Tensor, pp: PairPlan) -> torch.Tensor:
     """T (n_blocks, cd, cd) of :func:`plain`: on a card one launch of the
     kernel (raises if it is refused), on the CPU the plain version."""
-    global LAUNCHES
     if X.device.type == "cpu":
         return plain(X, W, pp)
     cd = X.shape[-2]
@@ -148,5 +153,5 @@ def accumulate(X: torch.Tensor, W: torch.Tensor, pp: PairPlan) -> torch.Tensor:
                             torch.cuda.current_stream(X.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"schur_pairs launch failed (code {rc}) at {pp.n_blocks} blocks, cd = {cd}")
-    LAUNCHES += 1
+    spans.count("schur_pairs")
     return out

@@ -44,7 +44,7 @@ from ..core.status import Status
 from ..ops.fused_ldlt import max_n
 from ..problem import NLSProblem
 from ..utils.convert import tree_to_torch
-from ..utils.spans import count_read, count_rescue, span
+from ..utils.spans import count, span
 from .mesh import Mesh, Mesh2D, make_batch_mesh, make_mesh_2d, row_block_batch
 
 __all__ = ["vsolve", "BatchResult", "make_batch_mesh", "make_mesh_2d"]
@@ -367,7 +367,7 @@ def _rescue_unsolved(
         idx_np = np.nonzero(bad)[0]
         if idx_np.size == 0:
             return res
-        count_rescue(stage, idx_np.size)
+        count(("rescue_lanes", stage), idx_np.size)
         with span(_STAGE_SPANS[stage], {"lanes": idx_np.size}):
             idx = torch.as_tensor(idx_np, device=dev)
             sub = sibling.run(
@@ -435,7 +435,7 @@ def _status(res: BatchResult) -> np.ndarray:
     """The lanes' statuses read on the host for the rescue: one sync, a span
     ``cannoles.host_read`` counted at ``rescue.status``."""
     with span("cannoles.host_read"):
-        count_read("rescue.status")
+        count(("host_syncs", "rescue.status"))
         return res.status
 
 

@@ -1,4 +1,4 @@
-"""The port's spans and host-sync counts.
+"""The port's spans and counters.
 
 * :func:`span`: a named range of the host's work, recorded while a
   ``torch.profiler`` session runs and nothing but one
@@ -14,22 +14,28 @@
   call number) goes in ``args``, a dict of ints, floats, bools and strings,
   which the profiler keeps as the event's keyword inputs under
   ``record_shapes=True``.
-* The host syncs by site, counted with tracing on or off (one dict
-  increment): ``check:<segment>`` for each host check of the dense
-  solver, named after the segment whose flags it reads, and
-  ``check:matfree.<loop>`` for the matrix-free solver's; ``rescue.status``
-  for each read of the lanes' statuses by ``vsolve``'s rescue.  Every
-  solver of the process counts here, the rescue's siblings included, so the
-  sum is the process's host syncs.  ``ALL_FALSE`` counts the checks whose
-  flags were all false (no lane took the branch), by site;
-  ``RESCUE_LANES`` the lanes that each rescue stage re-ran.  Read them
-  through ``core.segments.counters()`` (``COUNTS`` names them there).
-* The camera-Schur engine's work (``core/ba.py``), also counted with
-  tracing on or off: ``SCHUR["assemble"]`` the camera systems assembled (one
-  a lane per ρ attempt) and ``SCHUR["pairs"]`` the pair blocks X_i W_jᵀ
-  summed into them on an observation list, read as ``("schur", ...)``.
-  Its spans: ``cannoles.schur.blocks`` (per-observation blocks, U, V, W, the
-  right-hand side), ``.assemble`` (V⁻¹, X, the pair sums, S),
+* The process's counts, in one registry, :data:`COUNTERS`, by key, counted
+  with tracing on or off (one dict increment) and read through
+  ``core.segments.counters()``.  A module that counts declares its keys
+  that read 0 before their first count (:func:`declare`) and counts with
+  :func:`count`: the custom kernels' launches by name (``ops/``), and the
+  keys of the solver's layers, ``(kind, name)``:
+
+  - ``("host_syncs", site)``: the host syncs by site, ``check:<segment>``
+    for each host check of the dense solver, named after the segment whose
+    flags it reads, ``check:matfree.<loop>`` for the matrix-free solver's,
+    and ``rescue.status`` for each read of the lanes' statuses by
+    ``vsolve``'s rescue.  Every solver of the process counts here, the
+    rescue's siblings included, so the sum is the process's host syncs;
+  - ``("all_false", site)``: the checks whose flags were all false (no lane
+    took the branch);
+  - ``("rescue_lanes", stage)``: the lanes that each rescue stage re-ran;
+  - ``("schur", "assemble" | "pairs")``: the camera-Schur engine's camera
+    systems assembled (one a lane per ρ attempt) and the pair blocks
+    X_i W_jᵀ summed into them on an observation list (``core/ba.py``).
+
+  The engine's spans: ``cannoles.schur.blocks`` (per-observation blocks, U,
+  V, W, the right-hand side), ``.assemble`` (V⁻¹, X, the pair sums, S),
   ``.factor`` (the scaling and Cholesky of S) and ``.solve``
   (substitutions, refinement, the backward-error gate).
 """
@@ -40,23 +46,15 @@ import contextlib
 
 import torch
 
-__all__ = ["span", "count_check", "count_read", "count_rescue", "count_schur", "SYNCS", "ALL_FALSE", "RESCUE_LANES",
-           "SCHUR", "COUNTS"]
+__all__ = ["span", "count", "count_check", "declare", "COUNTERS"]
 
 _enabled = torch._C._autograd._profiler_enabled
 _Range = torch._C._profiler._RecordFunctionFast
 
-# host syncs by site, since the process started
-SYNCS: dict = {}
-# of the checks, those whose flags were all false, by site
-ALL_FALSE: dict = {}
-# lanes re-run by rescue stage
-RESCUE_LANES: dict = {}
-# the Schur engine's camera systems and pair blocks
-SCHUR: dict = {}
-# the counts by their name in ``core.segments.counters()``
-COUNTS = {"host_syncs": SYNCS, "all_false": ALL_FALSE, "rescue_lanes": RESCUE_LANES, "schur": SCHUR}
-# "check:<segment>" by segment, so that a check builds no string
+# every count of the process since it started, by key
+COUNTERS: dict = {}
+# a segment's ("host_syncs", "check:<segment>") and ("all_false", ...) keys,
+# so that a check builds no string or tuple
 _SITES: dict = {}
 _OFF = contextlib.nullcontext()
 
@@ -69,26 +67,23 @@ def span(name: str, args: dict = None):
     return _Range(name) if args is None else _Range(name, [], args)
 
 
+def declare(*keys):
+    """Let each of ``keys`` read 0 before its first count."""
+    for key in keys:
+        COUNTERS.setdefault(key, 0)
+
+
+def count(key, n: int = 1):
+    """Add ``n`` to the count ``key``."""
+    COUNTERS[key] = COUNTERS.get(key, 0) + n
+
+
 def count_check(segment: str, hit: bool):
     """Count one host check of ``segment``'s flags; ``hit``: any flag set."""
-    site = _SITES.get(segment)
-    if site is None:
-        site = _SITES[segment] = f"check:{segment}"
-    SYNCS[site] = SYNCS.get(site, 0) + 1
+    keys = _SITES.get(segment)
+    if keys is None:
+        site = f"check:{segment}"
+        keys = _SITES[segment] = (("host_syncs", site), ("all_false", site))
+    COUNTERS[keys[0]] = COUNTERS.get(keys[0], 0) + 1
     if not hit:
-        ALL_FALSE[site] = ALL_FALSE.get(site, 0) + 1
-
-
-def count_read(site: str):
-    """Count one host read of the device outside the checks."""
-    SYNCS[site] = SYNCS.get(site, 0) + 1
-
-
-def count_rescue(stage: str, lanes: int):
-    """Count the ``lanes`` that one pass of rescue ``stage`` re-runs."""
-    RESCUE_LANES[stage] = RESCUE_LANES.get(stage, 0) + lanes
-
-
-def count_schur(kind: str, n: int):
-    """Count ``n`` of the Schur engine's ``kind`` (``"assemble"``, ``"pairs"``)."""
-    SCHUR[kind] = SCHUR.get(kind, 0) + n
+        COUNTERS[keys[1]] = COUNTERS.get(keys[1], 0) + 1

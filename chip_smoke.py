@@ -92,7 +92,7 @@ also before the pool, whose workers would share the host it measures:
    (``pallas_chol_min=0``), on both routes: captured and replayed, states
    equal bit for bit, kernel launches equal, statuses the CPU run's, every
    lane ``first_order``.  The LDLᵀ kernel's and the fused Cholesky
-   kernel's counters, set to 0 before the phase, must rise.
+   kernel's counts over the phase must rise.
 
 Phase 25 (the bank store's batched copy, ``ops/bank_copy.py``) runs after
 phase 21, before the pool, since it times the card:
@@ -103,7 +103,7 @@ phase 21, before the pool, since it times the card:
    the one-block path, the grid path, staging, more entries than a launch
    takes): the card's pool equal bit for bit to the CPU's and to the
    expected bytes, one launch counted per launch of the plan on the card;
-   the counters, zeroed just before it, over a fresh headline-family
+   the counts over a fresh headline-family
    graph-route ``vsolve`` at each B of ``COPY_SOLVE_B`` (the rescue on):
    launches counted, and at least ``COPY_ENGAGEMENT_BAR`` of the pairs
    folded; the first ``outer_post`` store of a headline-family ``vsolve``
@@ -121,7 +121,7 @@ phase 25, before the pool, since it times the card:
    blocks, built on the card) with random X and W, float32 at cd = 9 and 6
    and float64 at cd = 9: every entry within ``SCHUR_PAIRS_BAR`` of the sum
    of its terms' magnitudes from the plain version, bit-equal across two
-   launches, each launch counted (the counter zeroed just before); at
+   launches, each launch counted; at
    float32, cd = 9 the kernel, its plain version and the library route
    (``bmm`` + ``index_add_``) timed with CUDA events, beside the bound.
 
@@ -187,7 +187,7 @@ the card (``max_time=60``, the runner's default).
    4's other settings): with ``max_time=0`` chunk 0's statuses equal phase
    4's before its rescue and every later lane is ``max_time``; with
    ``max_time=600`` every status equals phase 4's; the LDLᵀ kernel's
-   counter, set to 0 before this phase, must rise;
+   count over this phase must rise;
 14. BA scene at full width: ``bench_ba_large.run_scene`` on
    ``large_bundle_adjustment(100, 10_000)`` (n = 30,600, m = 2,000,000),
    float32, through ``SchurBASolver`` and ``MatrixFreeSolver(cg_maxiter=600,
@@ -254,8 +254,8 @@ the card (``max_time=60``, the runner's default).
    10,240 × 1,024: ``first_order``, max |x − x_true| ≤ 1e-3, the sharded
    iter and nfact equal to the one-process run's); ``scaling.run(4096, 2)``
    (rows at k = 1, 2 labelled ``one_card_shared``); ``bench_chol.run()``
-   (N = 256 … 4,096 in float32, nb = 128: both Cholesky kernels' counters,
-   set to 0 before it, must rise; every row ``ok`` with ``rel_err`` ≤ 1e-4;
+   (N = 256 … 4,096 in float32, nb = 128: both Cholesky kernels' counts
+   over it must rise; every row ``ok`` with ``rel_err`` ≤ 1e-4;
    the kernel against ``torch.linalg.cholesky_ex`` with CUDA events, and
    the bound); ``perf_profile.run`` on six problems in float64 (six spawned
    processes, one per problem, started at the phase's start): solved per
@@ -272,18 +272,16 @@ the card busy for seconds on end, runs after the pool.  No custom kernel
 runs in phases 16-17: the tiled product is plain PyTorch, as the JAX
 script's is plain ``jnp``, and the cpp backend is host C++.
 
-The launch counter of the LDLᵀ kernel is set to 0 just before phase 4 and
-read after phase 5; each rung must launch it.  The Cholesky kernels'
-counters are set to 0 just before phase 8 and read after phase 10: the
-fused kernel must run in phases 8-9 and the block kernel in phase 10.  The
-LDLᵀ and fused Cholesky counters are set to 0 again before phase 20 and
-read after its two rungs: the BA rung must launch the one in every run,
-the large rung's kernel seam the other.  The LDLᵀ counter is set to 0
-again before phase 21, with the fused Cholesky counter, and read after it:
-the headline must launch the one and the chol batch the other.  On
-the graph route a kernel launched inside a captured segment counts once per
-replay (``core/segments.py``).  The Cholesky counters are set to 0 again
-before phase 22's ``bench_chol`` and read after it: both must rise.  The
+Every count is read from ``core.segments.counters()`` before and after
+what it counts.  The LDLᵀ kernel's launches over phases 4-5: each rung
+must launch it.  The Cholesky kernels' over phases 8-10: the fused kernel
+must run in phases 8-9 and the block kernel in phase 10.  The LDLᵀ and
+fused Cholesky kernels' over phase 20's two rungs: the BA rung must launch
+the one in every run, the large rung's kernel seam the other.  Both over
+phase 21: the headline must launch the one and the chol batch the other.
+On the graph route a kernel launched inside a captured segment counts once
+per replay (``core/segments.py``).  The Cholesky kernels' over phase 22's
+``bench_chol``: both must rise.  The
 last lines are the card's ``nvidia-smi`` line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.
 
@@ -497,25 +495,51 @@ def ldlt_host_us(dev, N=5, B=256, calls=1000, loops=5):
     return min(per_loop)
 
 
+def _count(key):
+    """The process's count ``key`` (``core.segments.counters()``); a
+    package from before that registry (``--against`` an older tree) keeps
+    the kernels' launches as module globals of ``ops``."""
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+
+    if hasattr(fl, "LAUNCHES"):
+        from cannoles_tpu_torch.ops import block_chol as bc
+
+        return {"fused_ldlt": fl.LAUNCHES, "chol_fused": bc.FUSED_LAUNCHES, "chol_block": bc.BLOCK_LAUNCHES}[key]
+    from cannoles_tpu_torch.core import segments
+
+    return segments.counters()[key]
+
+
+def _shape_counts():
+    """The fused LDLᵀ kernel's launches by (N, B), which graph replays add
+    to, or None for a package that does not count them."""
+    from cannoles_tpu_torch.ops import fused_ldlt as fl
+
+    if hasattr(fl, "LAUNCHES"):  # a package from before the counter registry
+        return dict(fl.BY_SHAPE) if hasattr(fl, "BY_SHAPE") else None
+    from cannoles_tpu_torch.core import segments
+
+    return {k[1]: n for k, n in segments.counters().items() if isinstance(k, tuple) and k[0] == "fused_ldlt"}
+
+
 @contextlib.contextmanager
 def _ldlt_shapes():
     """Counts the solver's fused LDLᵀ launches by (N, B), those inside the
-    rescue pass apart, for the time of the block: from the kernel's
-    ``BY_SHAPE`` counts (which graph replays add to) where the package has
-    them, else by wrapping ``core.solver.fused_ldlt_solve`` (a package
-    without the graph route); ``parallel.batch._rescue_unsolved`` is wrapped
-    to tell the rescue apart."""
+    rescue pass apart, for the time of the block: from the kernel's counts
+    by shape (``_shape_counts``) where the package has them, else by
+    wrapping ``core.solver.fused_ldlt_solve`` (a package without the graph
+    route); ``parallel.batch._rescue_unsolved`` is wrapped to tell the
+    rescue apart."""
     from cannoles_tpu_torch.core import solver as sv
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
     from cannoles_tpu_torch.parallel import batch as bt
 
     counts = {"main": {}, "rescue": {}}
     where = ["main"]
     fused, rescue = sv.fused_ldlt_solve, bt._rescue_unsolved
-    by_shape = getattr(fl, "BY_SHAPE", None)
+    start = _shape_counts()
 
     def add(c, before):
-        for k, n in by_shape.items():
+        for k, n in _shape_counts().items():
             if n != before.get(k, 0):
                 c[k] = c.get(k, 0) + n - before.get(k, 0)
 
@@ -527,25 +551,24 @@ def _ldlt_shapes():
 
     def in_rescue(*a, **k):
         where[0] = "rescue"
-        before = dict(by_shape) if by_shape is not None else None
+        before = _shape_counts() if start is not None else None
         try:
             return rescue(*a, **k)
         finally:
             where[0] = "main"
-            if by_shape is not None:
+            if start is not None:
                 add(counts["rescue"], before)
 
-    start = dict(by_shape) if by_shape is not None else None
     bt._rescue_unsolved = in_rescue
-    if by_shape is None:
+    if start is None:
         sv.fused_ldlt_solve = counted
     try:
         yield counts
     finally:
         sv.fused_ldlt_solve, bt._rescue_unsolved = fused, rescue
-        if by_shape is not None:
+        if start is not None:
             # everything since the start, less what the rescue launched
-            for k, n in by_shape.items():
+            for k, n in _shape_counts().items():
                 d = n - start.get(k, 0) - counts["rescue"].get(k, 0)
                 if d:
                     counts["main"][k] = d
@@ -559,7 +582,6 @@ def phase_headline(dev):
     from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
     from cannoles_tpu_torch.core.status import MSG, status_name
     from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
 
     dtype = torch.float32
     B, chunk = 65536, 16384
@@ -581,13 +603,13 @@ def phase_headline(dev):
         key = status_name(int(s)) + (f":{MSG[int(m)]}" if int(m) else "")
         breakdown[key] = breakdown.get(key, 0) + 1
 
-    l0, h0 = fl.LAUNCHES, solver.host_syncs
+    l0, h0 = _count("fused_ldlt"), solver.host_syncs
     with _ldlt_shapes() as shapes:
         t0 = time.perf_counter()
         res = vsolve(pb, x0s, rescue=True, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = fl.LAUNCHES - l0
+    launches = _count("fused_ldlt") - l0
     # the (N, B) the rescue pass launches most often
     rescue_shape = max(shapes["rescue"].items(), key=lambda kv: kv[1])[0] if shapes["rescue"] else None
     syncs = solver.host_syncs - h0 + sum(
@@ -613,20 +635,19 @@ def phase_headline(dev):
 def phase_ba(dev):
     from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
     from cannoles_tpu_torch.models.families import bundle_adjustment_batch
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
 
     dtype = torch.float32
     B = 256
     pb, x0s, datas, x_true = bundle_adjustment_batch(B, 3, 16, dtype=dtype, device=dev)
     solver = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="pallas",
                             dtype=dtype, device=dev)
-    l0 = fl.LAUNCHES
+    l0 = _count("fused_ldlt")
     with _ldlt_shapes() as shapes:
         t0 = time.perf_counter()
         res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=40)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = fl.LAUNCHES - l0
+    launches = _count("fused_ldlt") - l0
     summ = res.summary()
     ok = res.solved_mask()
     err = float(np.abs(res.solution[ok] - x_true[ok]).max()) if ok.any() else float("nan")
@@ -737,11 +758,11 @@ def phase_chol_kernels(dev):
     def check(A, rhs, dtype, tol, N, B, nb, label, want_ok, ill=False):
         Np = -(-N // nb) * nb
         route = "fused" if bc.uses_fused(Np, dtype) else "block"
-        l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+        l0 = (_count("chol_fused"), _count("chol_block"))
         fac = bc.block_cholesky(A, tol, nb)
         x = bc.block_cho_solve(fac, rhs)
         torch.cuda.synchronize()
-        grew = (bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1])
+        grew = (_count("chol_fused") - l0[0], _count("chol_block") - l0[1])
         ref = bc.block_cholesky_reference(A, tol, nb)
         xr = bc.block_cho_solve(ref, rhs)
         errs = [_rel(a, b) for a, b in ((fac.L, ref.L), (fac.Linv, ref.Linv), (fac.d, ref.d), (x, xr))]
@@ -824,16 +845,14 @@ def _launches(fn):
     launches (fused, block) and the device operations by name (kernels,
     copies and memsets: every event whose device is the card; None where
     the profiler does not trace the card)."""
-    from cannoles_tpu_torch.ops import block_chol as bc
-
     fn()
     torch.cuda.synchronize()
     counts = []
 
     def counted():
-        l0 = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+        l0 = (_count("chol_fused"), _count("chol_block"))
         fn()
-        counts.append((bc.FUSED_LAUNCHES - l0[0], bc.BLOCK_LAUNCHES - l0[1]))
+        counts.append((_count("chol_fused") - l0[0], _count("chol_block") - l0[1]))
 
     _, _, events = _profile_device(counted, "one factorization")
     if events is None:
@@ -924,7 +943,6 @@ def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
     kernels with the most device time."""
 
     from cannoles_tpu_torch import CaNNOLeSSolver
-    from cannoles_tpu_torch.ops import block_chol as bc
 
     dev = pb.x0.device
     xt = torch.as_tensor(x_true, device=dev, dtype=torch.float64)
@@ -936,13 +954,13 @@ def _chol_cell(name, pb, x_true, solver_kw, solve_kw, bar, warm=3):
         seam = "kernel" if pcm == 0 else "default"
         s = solvers[pcm]
         h0 = s.host_syncs
-        l0 = bc.FUSED_LAUNCHES
+        l0 = _count("chol_fused")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = s.solve(max_time=600.0, **solve_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = bc.FUSED_LAUNCHES - l0
+        launches = _count("chol_fused") - l0
         err = float((torch.as_tensor(st.solution, device=dev, dtype=torch.float64) - xt).abs().max())
         _log(f"  {name} ({seam} seam, {label}): {_solve_summary(st)}, wall {wall:.3f} s "
              f"(solve clock {st.elapsed_time:.4f} s), max |x - x_true| {err:.3e}, fused kernel launches "
@@ -1001,18 +1019,17 @@ def phase_ba_large(dev):
 def phase_ba_parity(dev):
     from cannoles_tpu_torch import CaNNOLeSSolver
     from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment
-    from cannoles_tpu_torch.ops import block_chol as bc
 
     out = {}
     for where in (dev, torch.device("cpu")):
         pb, _ = large_bundle_adjustment(16, 300, dtype=torch.float64, device=where)
         s = CaNNOLeSSolver(pb, method="lm", kkt="condensed", linsolve="chol", pallas_chol_min=0)
-        l0 = bc.BLOCK_LAUNCHES
+        l0 = _count("chol_block")
         t0 = time.perf_counter()
         out[where.type] = s.solve(max_time=1200.0)
         wall = time.perf_counter() - t0
         _log(f"  BA 16x300 f64 LM on {where.type}: {_solve_summary(out[where.type])}, "
-             f"wall {wall:.3f} s, block kernel launches {bc.BLOCK_LAUNCHES - l0}")
+             f"wall {wall:.3f} s, block kernel launches {_count("chol_block") - l0}")
     g, c = out["cuda"], out["cpu"]
     if (g.status, g.iter) != (c.status, c.iter):
         raise AssertionError(f"card vs CPU (f64 BA): {g.status}/{g.iter} vs {c.status}/{c.iter}")
@@ -1261,7 +1278,6 @@ def phase_deadline(dev, head):
     statuses lane for lane."""
     from cannoles_tpu_torch import Status, vsolve
     from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
 
     dtype = torch.float32
     B, chunk = 65536, 16384
@@ -1272,12 +1288,12 @@ def phase_deadline(dev, head):
     x0s = torch.as_tensor(x0, dtype=dtype, device=dev)
     out = {}
     for budget in (0.0, 600.0):
-        l0 = fl.LAUNCHES
+        l0 = _count("fused_ldlt")
         t0 = time.perf_counter()
         res = vsolve(pb, x0s, max_time=budget, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fl.LAUNCHES - l0
+        launches = _count("fused_ldlt") - l0
         st = res.status
         if res.solver.linsolve != "pallas":
             raise AssertionError(f"deadline: 'auto' routed to {res.solver.linsolve}")
@@ -1654,7 +1670,6 @@ def _rank_cfg4(pb, mesh):
     (the second solve is the warm one): counters, x, the warm wall, peak
     device memory and the Cholesky kernel's launches of the warm solve."""
     from cannoles_tpu_torch import CaNNOLeSSolver
-    from cannoles_tpu_torch.ops import block_chol as bc
     from cannoles_tpu_torch.parallel.schur import solve_row_sharded
 
     dev = mesh.device
@@ -1665,14 +1680,14 @@ def _rank_cfg4(pb, mesh):
         for _ in range(2):
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            bc.FUSED_LAUNCHES = 0
+            f0 = _count("chol_fused")
             _rank_sync(dev, mesh.group)
             t0 = time.perf_counter()
             st = solve_row_sharded(pb, mesh, solver=s, max_iter=30)
             _rank_sync(dev, mesh.group)
             wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else float("nan")
-        out[seam] = dict(counters=_shard_counters(st), x=st.solution, wall_s=wall, launches=bc.FUSED_LAUNCHES,
+        out[seam] = dict(counters=_shard_counters(st), x=st.solution, wall_s=wall, launches=_count("chol_fused") - f0,
                          peak_gb=peak)
     return out
 
@@ -1699,7 +1714,6 @@ def rank_phase19(m, n, B5, device=None):
 
     from cannoles_tpu_torch import MatrixFreeSolver, vsolve
     from cannoles_tpu_torch.models.families import large_rung_problem, lm_bench_batch, lm_bench_family
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
     from cannoles_tpu_torch.parallel.mesh import make_batch_mesh, make_row_mesh
     from cannoles_tpu_torch.parallel.multihost import batch_convergence_stats, scaling_bench
 
@@ -1723,13 +1737,13 @@ def rank_phase19(m, n, B5, device=None):
     mesh = make_batch_mesh(device=device)
     fam = lm_bench_family(torch.float32, dev)
     x0, d = lm_bench_batch(B5, seed=0)
-    fl.LAUNCHES = 0
+    f0 = _count("fused_ldlt")
     _rank_sync(dev)
     t0 = time.perf_counter()
     res = vsolve(fam, x0, data_batch=d, mesh=mesh, max_iter=50)
     _rank_sync(dev)
     wall = time.perf_counter() - t0
-    launches = fl.LAUNCHES
+    launches = _count("fused_ldlt") - f0
     first = mesh.rank == 0  # the result is the same on every rank: one copy comes back
     out["cfg5"] = dict(wall_s=wall, launches=launches, stats=batch_convergence_stats(res.states, mesh),
                        linsolve=res.solver.linsolve, kkt=res.solver.kkt,
@@ -1939,7 +1953,6 @@ def phase_entry_points(dev, large=(10_240, 1024), scaling_B=ENTRY_SCALING[0], ch
 
     from cannoles_tpu_torch import bench_chol, bench_large, mgh_battery, perf_profile, scaling
     from cannoles_tpu_torch.dryrun import dryrun_multichip
-    from cannoles_tpu_torch.ops import block_chol as bc
 
     t_phase = time.perf_counter()
     device = None if dev.type == "cuda" else "cpu"  # the entry points' own default is the card
@@ -1982,9 +1995,9 @@ def phase_entry_points(dev, large=(10_240, 1024), scaling_B=ENTRY_SCALING[0], ch
             bad.append("scaling rows")
 
         t0 = time.perf_counter()
-        bc.FUSED_LAUNCHES = bc.BLOCK_LAUNCHES = 0
+        c0 = _count("chol_fused"), _count("chol_block")
         chol = bench_chol.run(chol_sizes or bench_chol.SIZES, dev, log=lambda s: _log(f"  bench_chol {s}"))
-        launches = (bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES)
+        launches = (_count("chol_fused") - c0[0], _count("chol_block") - c0[1])
         walls["bench_chol"] = time.perf_counter() - t0
         out["bench_chol"] = dict(rows=chol, launches=launches)
         _log(f"  bench_chol launches (fused, block) {launches}")
@@ -2046,7 +2059,6 @@ def prec_large_rung(dev):
     solve ``first_order`` with max |x − x_true| ≤ ``PREC_LARGE_BAR``."""
     from cannoles_tpu_torch import CaNNOLeSSolver
     from cannoles_tpu_torch.models.families import large_rung_problem
-    from cannoles_tpu_torch.ops import block_chol as bc
 
     pb, x_true, _ = large_rung_problem(dtype=torch.float32, device=dev)
     xt = torch.as_tensor(x_true, device=dev, dtype=torch.float64)
@@ -2058,7 +2070,7 @@ def prec_large_rung(dev):
         s = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="chol",
                            dtype=torch.float32, device=dev, **kw)
         kernel_seam = kw.get("pallas_chol_min") == 0
-        l0 = bc.FUSED_LAUNCHES
+        l0 = _count("chol_fused")
 
         def solve():
             st = s.solve(max_iter=30, max_time=600.0)
@@ -2084,7 +2096,7 @@ def prec_large_rung(dev):
         for e in events or ():
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        launches = bc.FUSED_LAUNCHES - l0
+        launches = _count("chol_fused") - l0
         if (launches > 0) != kernel_seam:
             raise AssertionError(f"large rung, {label}: {launches} fused Cholesky kernel launches")
         ss = st.solver_specific
@@ -2112,7 +2124,6 @@ def prec_ba(dev):
     modes, the counts of the others recorded."""
     from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
     from cannoles_tpu_torch.models.families import bundle_adjustment_batch
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
 
     pb, x0s, datas, x_true = bundle_adjustment_batch(256, 3, 16, dtype=torch.float32, device=dev)
     B = x0s.shape[0]
@@ -2122,13 +2133,13 @@ def prec_ba(dev):
     for label, kw in runs:
         solver = CaNNOLeSSolver(pb, method="gauss_newton", kkt="condensed", linsolve="pallas",
                                 dtype=torch.float32, device=dev, **kw)
-        l0 = fl.LAUNCHES
+        l0 = _count("fused_ldlt")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=40)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fl.LAUNCHES - l0
+        launches = _count("fused_ldlt") - l0
         summ = res.summary()
         ok = res.solved_mask()
         err = float(np.abs(res.solution[ok] - x_true[ok]).max()) if ok.any() else float("nan")
@@ -2351,7 +2362,6 @@ def headline_rescue(dev, route, reps=2):
     ``_rescue_unsolved``), host checks, launches; the last rep's states."""
     from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
     from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
-    from cannoles_tpu_torch.ops import fused_ldlt as fl
     from cannoles_tpu_torch.parallel import batch as bt
 
     dtype = torch.float32
@@ -2378,14 +2388,14 @@ def headline_rescue(dev, route, reps=2):
         for _ in range(reps):
             spent[0] = 0.0
             syncs0 = _all_syncs(solver)
-            l0 = fl.LAUNCHES
+            l0 = _count("fused_ldlt")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = vsolve(pb, x0s, data_batch=datas, solver=solver, max_iter=50, chunk_size=16384,
                          max_eval=48, rescue=True)
             torch.cuda.synchronize()
             runs.append(dict(wall_s=time.perf_counter() - t0, rescue_s=spent[0],
-                             host_syncs=_all_syncs(solver) - syncs0, launches=fl.LAUNCHES - l0,
+                             host_syncs=_all_syncs(solver) - syncs0, launches=_count("fused_ldlt") - l0,
                              solved=int(res.summary()["solved"])))
     finally:
         bt._rescue_unsolved = rescue
@@ -2432,17 +2442,15 @@ def phase_host_path_chol(dev):
     (``pallas_chol_min=0``: the n = 2 block padded to 128), on both routes:
     the graph route captures and replays it, states equal bit for bit,
     statuses equal the CPU run's, every lane ``first_order``."""
-    from cannoles_tpu_torch.ops import block_chol as bc
-
     out = {}
     for dtype in (torch.float32, torch.float64):
         for pcm in (None, 0):
             runs = {}
             for route in ("graph", "eager"):
-                f0 = bc.FUSED_LAUNCHES
+                f0 = _count("chol_fused")
                 s, st = host_path_chol(dev, dtype, route, pcm)
                 torch.cuda.synchronize()
-                runs[route] = (s, st, bc.FUSED_LAUNCHES - f0)
+                runs[route] = (s, st, _count("chol_fused") - f0)
             (g, a, la), (_, b, lb) = runs["graph"], runs["eager"]
             _, c = host_path_chol(torch.device("cpu"), dtype, "eager", pcm)
             key = f"{str(dtype)[6:]} {'kernels' if pcm == 0 else 'cholesky'}"
@@ -2574,23 +2582,21 @@ COPY_ENGAGEMENT_BAR = 0.95
 
 
 def _copy_engagement(dev, B):
-    """The batched copy's counters over one headline-family ``vsolve`` at B on
-    the graph route (a fresh solver: its captures and replays), zeroed just
-    before it."""
+    """The batched copy's counts over one headline-family ``vsolve`` at B on
+    the graph route (a fresh solver: its captures and replays)."""
     from cannoles_tpu_torch import CaNNOLeSSolver, vsolve
     from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family
-    from cannoles_tpu_torch.ops import bank_copy
 
     x0, d = lm_bench_batch(B, seed=B)
     pb = lm_bench_family(torch.float32, dev)
     s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=dev)
-    bank_copy.LAUNCHES = 0
-    bank_copy.COUNTS.update(entries=0, left=0)
+    keys = ("bank_copy", ("bank_copy", "entries"), ("bank_copy", "left"))
+    c0 = [_count(k) for k in keys]
     vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=dev),
            data_batch=torch.as_tensor(d, dtype=torch.float32, device=dev), solver=s,
            max_iter=50, max_eval=48, rescue=True)
     torch.cuda.synchronize()
-    c = dict(B=B, launches=bank_copy.LAUNCHES, **bank_copy.COUNTS)
+    c = dict(zip(("launches", "entries", "left"), (_count(k) - n for k, n in zip(keys, c0))), B=B)
     c["engagement"] = c["entries"] / max(c["entries"] + c["left"], 1)
     return c
 
@@ -2610,7 +2616,7 @@ def phase_bank_copy(dev, layouts=COPY_LAYOUTS, solves=COPY_SOLVE_B, batches=COPY
     from cannoles_tpu_torch.utils.testing import copy_expected, copy_layout, copy_pairs
 
     out = dict(plans=0, layouts=[])
-    bank_copy.LAUNCHES = 0
+    l0 = _count("bank_copy")
     for seed, n, max_numel in layouts:
         pool, other, entries = copy_layout(seed, n, max_numel)
         got = {}
@@ -2627,7 +2633,7 @@ def phase_bank_copy(dev, layouts=COPY_LAYOUTS, solves=COPY_SOLVE_B, batches=COPY
         out["plans"] += len(plan)
         out["layouts"].append(dict(seed=seed, entries=n, bytes=int(pool.size), launches=len(plan),
                                    one_block=sum(o for o, _ in plan), left=len(left)))
-    out["launches"] = bank_copy.LAUNCHES
+    out["launches"] = _count("bank_copy") - l0
     if out["launches"] != out["plans"]:
         raise AssertionError(f"phase 25: {out['launches']} launches counted for {out['plans']} planned on the card")
     _log(f"  kernel == plain version on {len(layouts)} random stores, {out['launches']} launches counted: "
@@ -2686,8 +2692,7 @@ def phase_schur_pairs(dev, scene=SCHUR_PAIRS_SCENE, cases=SCHUR_PAIRS_CASES):
     (n_obs, cd, 3) of each case.  The kernel against its plain version on the
     same X and W: every entry of every block within ``SCHUR_PAIRS_BAR`` of
     the sum of its terms' magnitudes (the plain version on |X| and |W|);
-    bit-equal across two launches; one launch counted per launch (the
-    counter zeroed just before).  At the first case the kernel, the plain
+    bit-equal across two launches; one launch counted per launch.  At the first case the kernel, the plain
     version and the library route (``bmm`` + ``index_add_``) are timed with
     CUDA events, beside the bound from the inputs."""
     from cannoles_tpu_torch.models.bal import draw_scene
@@ -2699,7 +2704,7 @@ def phase_schur_pairs(dev, scene=SCHUR_PAIRS_SCENE, cases=SCHUR_PAIRS_CASES):
     out = dict(shape=f"{C} cameras, {P:,} points, {n_obs:,} observations", pairs=pp.n_pairs,
                blocks=pp.n_blocks, cases=[])
     g = torch.Generator(device=dev).manual_seed(26)
-    schur_pairs.LAUNCHES = 0
+    l0 = _count("schur_pairs")
     launched = 0
     for k, (dtype, cd) in enumerate(cases):
         X = torch.randn((n_obs, cd, 3), generator=g, dtype=dtype, device=dev)
@@ -2727,7 +2732,7 @@ def phase_schur_pairs(dev, scene=SCHUR_PAIRS_SCENE, cases=SCHUR_PAIRS_CASES):
                        timed=f"{case['dtype']} cd={cd}")
         out["cases"].append(case)
         del X, W, T1, T2, ref, mag
-    out["launches"] = schur_pairs.LAUNCHES
+    out["launches"] = _count("schur_pairs") - l0
     if out["launches"] != launched:
         raise AssertionError(f"phase 26: {out['launches']} pair-kernel launches counted for {launched} made")
     _log(f"  pair kernel on {out['shape']} ({out['pairs']:,} pairs, {out['blocks']:,} blocks): {out['cases']}")
@@ -2814,7 +2819,7 @@ def phase_obs_products(dev, scene=SCHUR_PAIRS_SCENE, cases=OBS_CASES):
     sl = obs_products.lists(sc["cam_idx"].to(dev), sc["pt_idx"].to(dev), C, P)
     out = dict(shape=f"{C} cameras, {P:,} points, {n_obs:,} observations", cases=[], kinds={})
     g = torch.Generator(device=dev).manual_seed(27)
-    obs_products.LAUNCHES = 0
+    l0 = _count("obs_products")
     launched = 0
     tup = (lambda t: t if isinstance(t, tuple) else (t,))
     for k, (dtype, cd) in enumerate(cases):
@@ -2846,7 +2851,7 @@ def phase_obs_products(dev, scene=SCHUR_PAIRS_SCENE, cases=OBS_CASES):
                      f"{100 * bound / ms:.2f}%)")
             del k1, k2, ref, mag
         out["cases"].append(case)
-    out["launches"] = obs_products.LAUNCHES
+    out["launches"] = _count("obs_products") - l0
     if out["launches"] != launched:
         raise AssertionError(f"phase 27: {out['launches']} products-kernel launches counted for {launched} made")
     _log(f"  products kernel on {out['shape']}: {out['cases']}")
@@ -3045,7 +3050,6 @@ def main() -> int:
     if args.against:
         return against(str(pathlib.Path(args.against).resolve()))
     from cannoles_tpu_torch.ops import _native
-    from cannoles_tpu_torch.ops import block_chol as bc
     from cannoles_tpu_torch.ops import fused_ldlt as fl
 
     dev = torch.device("cuda", 0)
@@ -3069,13 +3073,13 @@ def main() -> int:
     worst = phase_kernel(dev)
     sweep = threshold_sweep(dev)
     times = ldlt_times(dev, [(5, 16384), (73, 256)])
-    fl.LAUNCHES = 0
+    f0 = _count("fused_ldlt")
     _phase("phase 4: headline rung")
     head = phase_headline(dev)
     head_lanes = {k: head.pop(k) for k in ("pre_status", "status")}
     _phase("phase 5: BA rung")
     ba = phase_ba(dev)
-    launches = fl.LAUNCHES
+    launches = _count("fused_ldlt") - f0
     _log("  phase 3's kernel at the rescue's most frequent shape, and its host cost per call")
     rescue = tuple(head["rescue_shape"] or (5, 48))
     times.update(ldlt_times(dev, [rescue]))
@@ -3086,24 +3090,24 @@ def main() -> int:
     _phase("phase 7: Cholesky kernels vs plain versions on the card")
     chol_worst, chol_worst_ill = phase_chol_kernels(dev)
     times7 = chol_times(dev)
-    bc.FUSED_LAUNCHES = bc.BLOCK_LAUNCHES = 0
+    c0 = _count("chol_fused"), _count("chol_block")
     _phase("phase 8: large rung (linsolve='chol')")
     large = phase_large_rung(dev)
     _phase("phase 9: BA scene 16x300 (linsolve='chol')")
     ba_large = phase_ba_large(dev)
     _phase("phase 10: BA scene 16x300 in float64, card vs CPU")
     phase_ba_parity(dev)
-    fused_launches, block_launches = bc.FUSED_LAUNCHES, bc.BLOCK_LAUNCHES
+    fused_launches, block_launches = _count("chol_fused") - c0[0], _count("chol_block") - c0[1]
     if fused_launches <= 0 or block_launches <= 0:
         raise AssertionError(f"the chol path launched the fused kernel {fused_launches} and the "
                              f"block kernel {block_launches} times")
 
     # phase 20 before the pool, so that its walls are not shared with it
-    fl.LAUNCHES = bc.FUSED_LAUNCHES = 0
+    c0 = _count("fused_ldlt"), _count("chol_fused")
     _phase("phase 20: matmul_precision on the card (large rung, BA rung)")
     t20 = time.perf_counter()
     prec = dict(large_rung=prec_large_rung(dev), ba=prec_ba(dev))
-    prec_launches = dict(fused_ldlt=fl.LAUNCHES, chol_fused=bc.FUSED_LAUNCHES)
+    prec_launches = dict(fused_ldlt=_count("fused_ldlt") - c0[0], chol_fused=_count("chol_fused") - c0[1])
     _log(f"  phase 20's kernel launches: {prec_launches}")
     _phase("phase 20: the bf16 route vs its plain version, the pinned sites, float64 card vs CPU")
     prec.update(phase_precision(dev))
@@ -3112,15 +3116,16 @@ def main() -> int:
 
     # phase 21 before the pool too: its walls and ms per host check are
     # the host's, which the pool's workers would share
-    fl.LAUNCHES = bc.FUSED_LAUNCHES = 0
+    c0 = _count("fused_ldlt"), _count("chol_fused")
     _phase("phase 21: the graph route against the eager route (biggs_exp6_24 f64, the headline's rescue, "
            "linsolve='chol' at B = 4)")
     host_path = phase_host_path(dev)
-    host_path["launches"] = fl.LAUNCHES
-    host_path["launches_chol_fused"] = bc.FUSED_LAUNCHES
+    host_path["launches"] = _count("fused_ldlt") - c0[0]
+    host_path["launches_chol_fused"] = _count("chol_fused") - c0[1]
     if host_path["launches"] <= 0 or host_path["launches_chol_fused"] <= 0:
-        raise AssertionError(f"phase 21: the headline launched the fused LDLT kernel {fl.LAUNCHES} times and "
-                             f"the chol batch the Cholesky kernel {bc.FUSED_LAUNCHES} times")
+        raise AssertionError(f"phase 21: the headline launched the fused LDLT kernel {host_path['launches']} "
+                             f"times and the chol batch the Cholesky kernel {host_path['launches_chol_fused']} "
+                             "times")
 
     _phase("phase 25: the bank store's batched copy (kernel vs plain version, engagement, outer_post stores)")
     copies = phase_bank_copy(dev)
@@ -3169,10 +3174,10 @@ def main() -> int:
         parity11 = phase_battery_parity(dev, pool_rows)
         _phase("phase 12: the battery with its rescues in float32 on the card")
         battery12 = phase_battery(dev, pool_rows, pool_wall)
-        fl.LAUNCHES = 0
+        f0 = _count("fused_ldlt")
         _phase("phase 13: vsolve(max_time=...) on the headline family")
         deadline = phase_deadline(dev, head_lanes)
-        deadline_launches = fl.LAUNCHES
+        deadline_launches = _count("fused_ldlt") - f0
         _phase("phase 16: the huge separable fit (m=2,097,152, n=4,096, float32) through MatrixFreeSolver")
         fit = phase_fit(dev)
         _phase("phase 17: the fit in float64 card vs CPU, and linsolve='cpp' vs 'ldlt' on the card")

@@ -156,16 +156,27 @@ def test_the_eager_route_copies_nothing():
     assert bank.x is x
 
 
-def test_the_counters_add_up_and_restore():
-    """A replayed graph's copy counts (``_capture``'s delta) add to the
-    three counters, and ``restore_counters`` puts them back with the
-    others."""
+@pytest.mark.parametrize("delta", [
+    {"fused_ldlt": 3, "chol_fused": 1, "chol_block": 2},
+    {("fused_ldlt", (5, 16384)): 4},
+    {"bank_copy": 2, ("bank_copy", "entries"): 75, ("bank_copy", "left"): 3},
+    {"obs_products": 5, ("obs_products", "jtw"): 5},
+    {"schur_pairs": 2},
+    {("host_syncs", "check:test.segment"): 2, "host_syncs": 2},
+    {("all_false", "check:test.segment"): 1},
+    {("rescue_lanes", "test.stage"): 7},
+    {("schur", "assemble"): 2, ("schur", "pairs"): 90},
+], ids=["launches", "by_shape", "bank_copy", "obs_products", "schur_pairs", "host_syncs", "all_false",
+        "rescue_lanes", "schur"])
+def test_the_counters_add_up_and_restore(delta):
+    """A replayed graph's counts (``_capture``'s delta, the derived
+    ``"host_syncs"`` included) add to every kind of key, and
+    ``restore_counters`` puts them back with the others."""
     before = segments.counters()
-    delta = {"bank_copy": 2, ("bank_copy", "entries"): 75, ("bank_copy", "left"): 3}
     segments._credit(delta)
     after = segments.counters()
-    assert {k: after[k] - before[k] for k in delta} == delta
-    assert bank_copy.LAUNCHES == before["bank_copy"] + 2 and bank_copy.COUNTS["entries"] == before[("bank_copy", "entries")] + 75
+    assert {k: after[k] - before.get(k, 0) for k in delta} == delta
+    assert {k: n for k, n in after.items() if n != before.get(k, 0)}.keys() == delta.keys()
     segments.restore_counters(before)
     assert segments.counters() == before
 

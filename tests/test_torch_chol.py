@@ -20,6 +20,7 @@ import cannoles_tpu_torch as tc  # noqa: E402
 from cannoles_tpu.models.ba_large import large_bundle_adjustment as jba_large  # noqa: E402
 from cannoles_tpu.ops import pallas_chol as jchol  # noqa: E402
 from cannoles_tpu.parallel.batch import vsolve as jvsolve  # noqa: E402
+from cannoles_tpu_torch.core import segments  # noqa: E402
 from cannoles_tpu_torch.core.solver import resolve_auto  # noqa: E402
 from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment as tba_large  # noqa: E402
 from cannoles_tpu_torch.models.families import large_rung_problem  # noqa: E402
@@ -90,12 +91,12 @@ def test_plain_versions_and_block_solves_match_pallas(kind, N, nb):
 def test_wrappers_take_plain_path_on_cpu():
     rng = np.random.default_rng(5)
     A = torch.as_tensor(np.stack([_spd(256, rng), _spd(256, rng) - 800 * np.eye(256)]))
-    before = (tchol.BLOCK_LAUNCHES, tchol.FUSED_LAUNCHES)
+    before = tuple(segments.counters()[k] for k in ("chol_block", "chol_fused"))
     for got, ref in ((tchol.chol_block(A, TOL), tchol.chol_block_reference(A, TOL)),
                      (tchol.chol_fused(A, TOL, 128), tchol.chol_fused_reference(A, TOL, 128))):
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
-    assert (tchol.BLOCK_LAUNCHES, tchol.FUSED_LAUNCHES) == before == (0, 0)
+    assert tuple(segments.counters()[k] for k in ("chol_block", "chol_fused")) == before == (0, 0)
     # one block is one panel: the fused and block versions agree
     Lf, Mf, df = tchol.chol_fused_reference(A, TOL, 256)
     Lb, Mb, db = tchol.chol_block_reference(A, TOL)

@@ -4,9 +4,9 @@ against the JAX package's ``cpp`` backend and the port's ``ldlt``, in
 float64 on the CPU: the four trials of ``tests/test_backends.py``, float32
 inputs, the batch entry, the solve-level trajectory check of
 ``tests/test_precision_trajectory.py`` and ``vsolve``.  The build writes
-only under ``cannoles_tpu_torch/_build/``.  Skipped only without ``g++``."""
+only under its build directory.  Skipped only without ``g++``."""
 
-import os
+import ctypes
 import pathlib
 import shutil
 
@@ -21,7 +21,7 @@ torch.set_num_threads(1)
 import cannoles_tpu as jc  # noqa: E402
 import cannoles_tpu_torch as tc  # noqa: E402
 from cannoles_tpu.ops.cpp_ldlt import cpp_ldlt_factor_solve as jax_cpp  # noqa: E402
-from cannoles_tpu_torch.ops import cpp_ldlt  # noqa: E402
+from cannoles_tpu_torch.ops import _native, cpp_ldlt, ldlt  # noqa: E402
 from cannoles_tpu_torch.ops.ldlt import inertia_success, ldlt_factor, ldlt_solve  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -139,17 +139,20 @@ def _snapshot(d: pathlib.Path):
             if p.name != "libcannoles_ldlt.so"}
 
 
-def test_build_writes_only_under_the_port_build_dir():
+def test_build_writes_only_under_the_port_build_dir(tmp_path):
+    """Both host sources, through ``ops/_native.py``'s one build routine, into a
+    build directory of the test's own: the libraries under their cached
+    names there, no temporary file left, each loads with its functions, and
+    nothing else changes."""
     native = ROOT / "native"
-    build_dir = ROOT / "cannoles_tpu_torch" / "_build"
-    assert cpp_ldlt.lib_path().parent == build_dir
-    assert cpp_ldlt._SRC == ROOT / "cannoles_tpu_torch" / "csrc" / "ldlt_host.cpp"
+    assert cpp_ldlt.lib_path().parent == ROOT / "cannoles_tpu_torch" / "_build"
+    assert _native.CSRC == ROOT / "cannoles_tpu_torch" / "csrc"
+    sources = [(_native.CSRC / "ldlt_host.cpp", cpp_ldlt._FLAGS), (_native.CSRC / "ldlt_exact.cpp", ldlt._HOST_FLAGS)]
     before = _snapshot(native)
-    lib = build_dir / f"libldlt_host_buildtest_{os.getpid()}.so"
-    try:
-        cpp_ldlt._build(lib)
-        assert lib.exists()
-        assert not list(build_dir.glob(f"*.{os.getpid()}.tmp"))
-    finally:
-        lib.unlink(missing_ok=True)
+    libs = _native.build(sources, build_dir=tmp_path)
+    assert sorted(tmp_path.iterdir()) == sorted(libs)
+    assert [p.name for p in libs] == [_native.lib_path(src, flags).name for src, flags in sources]
+    assert libs[0].name == cpp_ldlt.native_lib_path().name
+    for lib, fn in zip(libs, ("cannoles_ldlt_factor_solve_batch", "cannoles_ldlt_exact_f64")):
+        assert hasattr(ctypes.CDLL(str(lib)), fn)
     assert _snapshot(native) == before

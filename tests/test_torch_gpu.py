@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from cannoles_tpu_torch import CaNNOLeSSolver, vsolve  # noqa: E402
+from cannoles_tpu_torch.core import segments  # noqa: E402
 from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment  # noqa: E402
 from cannoles_tpu_torch.models.families import lm_bench_batch, lm_bench_family  # noqa: E402
 from cannoles_tpu_torch.ops import block_chol as tchol  # noqa: E402
@@ -23,6 +24,16 @@ from cannoles_tpu_torch.ops import fused_ldlt as tfused  # noqa: E402
 from cannoles_tpu_torch.utils.testing import quasi_definite  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+
+
+def _n(key):
+    """The process's count ``key`` (``core.segments.counters()``)."""
+    return segments.counters().get(key, 0)
+
+
+def _by_shape():
+    """The fused LDLT kernel's launches by (N, B)."""
+    return {k[1]: n for k, n in segments.counters().items() if isinstance(k, tuple) and k[0] == "fused_ldlt"}
 
 
 @pytest.fixture
@@ -54,10 +65,10 @@ def test_fused_kernel_matches_plain_on_card(cuda, dtype):
         W, rhs, n1 = quasi_definite(B, N, seed=N)
         Wc = torch.as_tensor(W, dtype=dt, device=cuda)
         rc = torch.as_tensor(rhs, dtype=dt, device=cuda)
-        before = tfused.LAUNCHES
+        before = _n("fused_ldlt")
         x, d = tfused.fused_ldlt_solve(Wc, rc, tol)
         torch.cuda.synchronize()
-        assert tfused.LAUNCHES == before + 1
+        assert _n("fused_ldlt") == before + 1
         xr, dr = tfused.fused_ldlt_solve_reference(Wc, rc, tol)
         assert float((d - dr).abs().max()) <= rel * float(dr.abs().max())
         assert float((x - xr).abs().max()) <= rel * float(xr.abs().max())
@@ -91,7 +102,7 @@ def test_fused_kernel_bit_equal_to_plain_on_card(cuda, dtype):
 def test_fused_kernel_rejects_what_it_does_not_take(cuda):
     W, rhs, _ = quasi_definite(4, 5, seed=0)
     Wc, rc = torch.as_tensor(W, device=cuda), torch.as_tensor(rhs, device=cuda)
-    before = tfused.LAUNCHES
+    before = _n("fused_ldlt")
     with pytest.raises(ValueError):
         tfused.fused_ldlt_solve(Wc[:, :, :4], rc, 1e-16)  # not square
     with pytest.raises(ValueError):
@@ -104,7 +115,7 @@ def test_fused_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="cap"):
         tfused.fused_ldlt_solve(torch.eye(N, dtype=torch.float64, device=cuda)[None],
                                 torch.ones((1, N), dtype=torch.float64, device=cuda), 1e-16)
-    assert tfused.LAUNCHES == before
+    assert _n("fused_ldlt") == before
 
 
 def test_vsolve_on_card_matches_cpu(cuda):
@@ -116,9 +127,9 @@ def test_vsolve_on_card_matches_cpu(cuda):
     for where in (cuda, torch.device("cpu")):
         pb = lm_bench_family(torch.float64, where)
         s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full")
-        before = tfused.LAUNCHES
+        before = _n("fused_ldlt")
         out[where.type] = vsolve(pb, x0, data_batch=d, solver=s, max_iter=50, rescue=True)
-        assert (tfused.LAUNCHES > before) == (where.type == "cuda")
+        assert (_n("fused_ldlt") > before) == (where.type == "cuda")
     g, c = out["cuda"], out["cpu"]
     for f in ("status", "iter", "nfact", "nbk", "nlinsolve", "msg", "neval_F", "neval_c"):
         assert torch.equal(getattr(g.states, f).cpu(), getattr(c.states, f)), f
@@ -166,17 +177,17 @@ def test_chol_kernels_match_plain_on_card(cuda, dtype, nb, B, ill):
             assert e <= bar
 
     A = make(B, nb, nb, dt, cuda)
-    before = tchol.BLOCK_LAUNCHES
+    before = _n("chol_block")
     got = tchol.chol_block(A, tol)
     torch.cuda.synchronize()
-    assert tchol.BLOCK_LAUNCHES == before + 1
+    assert _n("chol_block") == before + 1
     close("chol_block", got, tchol.chol_block_reference(A, tol))
     N = 1024 if nb < 512 else 1536
     A = make(B, N, N, dt, cuda)
-    before = tchol.FUSED_LAUNCHES
+    before = _n("chol_fused")
     got = tchol.chol_fused(A, tol, nb)
     torch.cuda.synchronize()
-    assert tchol.FUSED_LAUNCHES == before + 1
+    assert _n("chol_fused") == before + 1
     close(f"chol_fused N={N}", got, tchol.chol_fused_reference(A, tol, nb))
 
 
@@ -228,14 +239,14 @@ def test_problem_defaults_to_the_card(cuda):
 
 def test_chol_kernels_reject_what_they_do_not_take(cuda):
     A = _spd_batch(2, 256, 0, torch.float64, cuda)
-    before = (tchol.BLOCK_LAUNCHES, tchol.FUSED_LAUNCHES)
+    before = (_n("chol_block"), _n("chol_fused"))
     with pytest.raises(TypeError):
         tchol.chol_block(A.half(), 1e-3)
     with pytest.raises(ValueError):
         tchol.chol_block(A[:, :, :128], 1e-12)  # not square
     with pytest.raises(ValueError, match="multiple"):
         tchol.chol_fused(A, 1e-12, 100)
-    assert (tchol.BLOCK_LAUNCHES, tchol.FUSED_LAUNCHES) == before
+    assert (_n("chol_block"), _n("chol_fused")) == before
 
 
 def test_chol_solver_on_card_matches_cpu(cuda):
@@ -246,9 +257,9 @@ def test_chol_solver_on_card_matches_cpu(cuda):
     for where in (cuda, torch.device("cpu")):
         pb, _ = large_bundle_adjustment(4, 80, dtype=torch.float64, device=where)
         s = CaNNOLeSSolver(pb, method="lm", kkt="condensed", linsolve="chol", pallas_chol_min=0)
-        before = tchol.FUSED_LAUNCHES
+        before = _n("chol_fused")
         out[where.type] = s.solve(max_time=600.0)
-        assert (tchol.FUSED_LAUNCHES > before) == (where.type == "cuda")
+        assert (_n("chol_fused") > before) == (where.type == "cuda")
     g, c = out["cuda"], out["cpu"]
     assert g.status == c.status == "first_order" and g.iter == c.iter
     assert g.solver_specific == c.solver_specific
@@ -580,13 +591,13 @@ def test_graph_route_equals_eager_route_at_b48_on_card(cuda):
         s = CaNNOLeSSolver(pb, method="lm", linsolve="pallas", kkt="full", dtype=torch.float32, device=cuda)
         if route == "eager":
             _eager(s)
-        l0, by0 = tfused.LAUNCHES, dict(tfused.BY_SHAPE)
+        l0, by0 = _n("fused_ldlt"), _by_shape()
         res = vsolve(pb, torch.as_tensor(x0, dtype=torch.float32, device=cuda),
                      data_batch=torch.as_tensor(d, dtype=torch.float32, device=cuda), solver=s,
                      max_iter=50, max_eval=48, rescue=True)
         torch.cuda.synchronize()
-        by = {k: n - by0.get(k, 0) for k, n in tfused.BY_SHAPE.items() if n != by0.get(k, 0)}
-        runs.append((res.states, tfused.LAUNCHES - l0, by))
+        by = {k: n - by0.get(k, 0) for k, n in _by_shape().items() if n != by0.get(k, 0)}
+        runs.append((res.states, _n("fused_ldlt") - l0, by))
     (a, la, ba), (b, lb, bb) = runs
     _bits_equal(a, b)
     assert la == lb > 0 and ba == bb and sum(ba.values()) == la
@@ -612,17 +623,15 @@ def test_bank_copy_kernel_bit_equal_to_plain_on_card(cuda, seed, n, max_numel):
         tp, to = torch.as_tensor(pool, device=dev).clone(), torch.as_tensor(other, device=dev).clone()
         pairs = copy_pairs(entries, tp, to)
         plan, _ = bank_copy.plan(pairs, {bank_copy._storage(d) for d, _ in pairs})
-        l0 = bank_copy.LAUNCHES
+        l0 = _n("bank_copy")
         bank_copy.store(pairs)
-        assert bank_copy.LAUNCHES - l0 == (len(plan) if dev.type == "cuda" else 0) and plan
+        assert _n("bank_copy") - l0 == (len(plan) if dev.type == "cuda" else 0) and plan
         out[dev.type] = (tp.cpu().numpy(), to.cpu().numpy())
     assert np.array_equal(out["cuda"][0], out["cpu"][0]) and np.array_equal(out["cuda"][1], other)
     assert np.array_equal(out["cuda"][0], copy_expected(entries, pool, other))
 
 
 def _copy_counts():
-    from cannoles_tpu_torch.core import segments
-
     c = segments.counters()
     return np.array([c["bank_copy"], c[("bank_copy", "entries")], c[("bank_copy", "left")]])
 
@@ -687,8 +696,6 @@ def test_spans_on_the_graph_route_on_card(cuda):
     rescue's status reads."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from cannoles_tpu_torch.core import segments
 
     x0, d = lm_bench_batch(256, seed=0)
     pb = lm_bench_family(torch.float32, cuda)
@@ -828,10 +835,10 @@ def test_chol_batch_on_graph_route_on_card(cuda, dtype, B, pallas_chol_min):
     counted alike on both routes."""
     runs = {}
     for route in ("graph", "eager"):
-        f0 = tchol.FUSED_LAUNCHES
+        f0 = _n("chol_fused")
         s, st = _exp_fit_on(cuda, dtype, B, route, pallas_chol_min)
         torch.cuda.synchronize()
-        runs[route] = (s, st, tchol.FUSED_LAUNCHES - f0)
+        runs[route] = (s, st, _n("chol_fused") - f0)
     (g, a, la), (_, b, lb) = runs["graph"], runs["eager"]
     assert (g.route, g.route_reason) == ("graph", "cuda") and g.graph_replays().get("solve0", 0) > 0
     _bits_equal(a, b)
@@ -966,11 +973,11 @@ def test_schur_pairs_kernel_matches_plain_at_dubrovnik_size_on_card(cuda, dtype)
     g = torch.Generator(device=cuda).manual_seed(11)
     X = torch.randn((1_255_268, 9, 3), generator=g, dtype=dt, device=cuda)
     W = torch.randn((1_255_268, 9, 3), generator=g, dtype=dt, device=cuda)
-    before = schur_pairs.LAUNCHES
+    before = _n("schur_pairs")
     T1 = schur_pairs.accumulate(X, W, pp)
     T2 = schur_pairs.accumulate(X, W, pp)
     torch.cuda.synchronize()
-    assert schur_pairs.LAUNCHES == before + 2
+    assert _n("schur_pairs") == before + 2
     assert torch.equal(T1, T2)
     ref = schur_pairs.plain(X, W, pp)
     scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
@@ -990,7 +997,6 @@ def test_bal_solve_on_card_against_the_float64_reference(cuda):
     card) with the first-order measure under twice the stated tolerance."""
     import bal_plain as bp
 
-    from cannoles_tpu_torch.core import segments
     from cannoles_tpu_torch.core.ba import SchurBASolver
     from cannoles_tpu_torch.models.bal import bal_scene
 
@@ -1081,7 +1087,7 @@ def test_obs_products_kernel_matches_plain_at_dubrovnik_size_on_card(cuda, dtype
     C, P, n_obs = 356, 226_730, 1_255_268
     sc = draw_scene(C, P, n_obs, seed=0)
     sl = obs_products.lists(sc["cam_idx"].to(cuda), sc["pt_idx"].to(cuda), C, P)
-    before, made = obs_products.LAUNCHES, 0
+    before, made = _n("obs_products"), 0
     for layout in ("forward", "contiguous"):
         for kind, args in _obs_inputs(sl, n_obs, cd, dt, cuda, 1, 27, layout).items():
             if layout == "contiguous" and kind in ("reduce", "lift"):
@@ -1090,7 +1096,7 @@ def test_obs_products_kernel_matches_plain_at_dubrovnik_size_on_card(cuda, dtype
             made += 2
             assert equal, (kind, layout)
             assert worst <= _OBS_BAR[dt], (kind, layout, worst)
-    assert obs_products.LAUNCHES == before + made
+    assert _n("obs_products") == before + made
     with pytest.raises(ValueError, match="6 or 9"):
         A = torch.zeros((1, n_obs, 2, 4), dtype=dt, device=cuda)
         obs_products.uv(A, A[..., :3], sl)
@@ -1124,7 +1130,6 @@ def test_list_route_solve_on_card_takes_the_obs_products_kernel(cuda, monkeypatc
     √eps-relative first-order test, in other roundings), every product of
     the solve a launch ("obs_products" against the calls of every kind,
     ("obs_products", kind): 100%)."""
-    from cannoles_tpu_torch.core import segments
     from cannoles_tpu_torch.core.ba import SchurBASolver
     from cannoles_tpu_torch.core.solver import _add_batch_axis
     from cannoles_tpu_torch.models.bal import bal_scene

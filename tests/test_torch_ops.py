@@ -14,6 +14,7 @@ torch.set_num_threads(1)
 from cannoles_tpu.ops import cgls as jcgls  # noqa: E402
 from cannoles_tpu.ops import ldlt as jldlt  # noqa: E402
 from cannoles_tpu.ops.pallas_ldlt import batched_ldlt_solve_pallas  # noqa: E402
+from cannoles_tpu_torch.core import segments  # noqa: E402
 from cannoles_tpu_torch.ops import cgls as tcgls  # noqa: E402
 from cannoles_tpu_torch.ops import fused_ldlt as tfused  # noqa: E402
 from cannoles_tpu_torch.ops import ldlt as tldlt  # noqa: E402
@@ -41,10 +42,10 @@ def test_fused_reference_matches_pallas_interpret(N, B):
 
 def test_fused_wrapper_takes_plain_path_on_cpu():
     W, rhs, n1 = quasi_definite(8, 5, seed=0)
-    before = tfused.LAUNCHES
+    before = segments.counters()["fused_ldlt"]
     x, d = tfused.fused_ldlt_solve(torch.as_tensor(W), torch.as_tensor(rhs), EIG_TOL)
     xr, dr = tfused.fused_ldlt_solve_reference(torch.as_tensor(W), torch.as_tensor(rhs), EIG_TOL)
-    assert tfused.LAUNCHES == before == 0
+    assert segments.counters()["fused_ldlt"] == before == 0
     assert torch.equal(x, xr) and torch.equal(d, dr)
     ok = tldlt.inertia_success(d, x, n1, EIG_TOL)
     assert ok.tolist() == [False, False] + [True] * 6

@@ -14,12 +14,12 @@ import cannoles_tpu as jc  # noqa: E402
 import cannoles_tpu_torch as tc  # noqa: E402
 from cannoles_tpu.models.families import bundle_adjustment_batch as jba_batch  # noqa: E402
 from cannoles_tpu.parallel.batch import vsolve as jvsolve  # noqa: E402
+from cannoles_tpu_torch.core import segments  # noqa: E402
 from cannoles_tpu_torch.models.families import (  # noqa: E402
     bundle_adjustment_batch as tba_batch,
     lm_bench_batch,
     lm_bench_family,
 )
-from cannoles_tpu_torch.ops import fused_ldlt  # noqa: E402
 from cannoles_tpu_torch.parallel.mesh import make_batch_mesh  # noqa: E402
 
 FIELDS = ("status", "iter", "nfact", "nbk", "nlinsolve", "msg", "neval_F", "neval_c")
@@ -59,10 +59,10 @@ def run_bench(x0, d, **kw):
 
 def test_vsolve_bench_family_matches_jax():
     x0, d = lm_bench_batch(8)
-    before = fused_ldlt.LAUNCHES
+    before = segments.counters()["fused_ldlt"]
     a, b, _ = run_bench(x0, d)
     assert_lanes_equal(a, b)
-    assert fused_ldlt.LAUNCHES == before  # the CPU runs the plain version
+    assert segments.counters()["fused_ldlt"] == before  # the CPU runs the plain version
 
 
 def test_vsolve_rescue_budget_stage_matches_jax():
