@@ -27,8 +27,10 @@ residual the raveled (n_obs, 2) reprojections, as
 :func:`cannoles_tpu_torch.models.bal.bal_problem` builds it) no grid is
 formed: cameras of cd = 6 or 9 parameters (read from the layout),
 per-observation blocks A (n_obs, 2, cd), Bm (n_obs, 2, 3) and
-W = AᵀBm (n_obs, cd, 3), U and V summed over each camera's and each
-point's observations, and S = blockdiag(U) + Dc − Σₚ Σ_{i,j ∈ obs(p)}
+W = AᵀBm (n_obs, cd, 3) (``ops/obs_blocks.py``: one kernel launch on a card
+with Snavely's camera, ``jacfwd`` and an einsum otherwise), U and V summed
+over each camera's and each point's observations, and
+S = blockdiag(U) + Dc − Σₚ Σ_{i,j ∈ obs(p)}
 X_i W_jᵀ summed over the pairs of observations that share a point
 (``ops/schur_pairs.py``: the pairs listed once per observation structure,
 each lower-triangle block summed by one kernel launch on a card), then
@@ -59,7 +61,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vjp, vmap
 
-from ..ops import obs_products, schur_pairs
+from ..ops import obs_blocks, obs_products, schur_pairs
 from ..params import Params
 from ..problem import NLSProblem
 from ..utils.linalg import norm_2
@@ -99,30 +101,14 @@ def _obs_blocks(project, x, C: int, P: int):
     return A.to(x.dtype), Bm.to(x.dtype)
 
 
-def _list_obs_blocks(project, x, C: int, P: int, cd: int, cam_idx, pt_idx):
-    """Per-observation Jacobian blocks on a list, x (B, cd·C + 3P):
-    A = ∂u/∂cam (B, n_obs, 2, cd) and Bm = ∂u/∂pt (B, n_obs, 2, 3), from one
-    forward-mode pass over each observation's camera and point."""
-    Bt = x.shape[0]
-    cams = x[:, : cd * C].reshape(Bt, C, cd)[:, cam_idx]
-    pts = x[:, cd * C:].reshape(Bt, P, 3)[:, pt_idx]
-
-    def jac_one(cam, pt):
-        J = jacfwd(lambda v: project(v[:cd], v[cd:]))(torch.cat([cam, pt]))
-        return J[:, :cd], J[:, cd:]
-
-    A, Bm = vmap(vmap(jac_one))(cams, pts)
-    return A.to(x.dtype), Bm.to(x.dtype)
-
-
 class _ListProducts:
     """The list route's view of a problem: its products from the
     per-observation blocks at x, everything else the problem's.
 
     J v = A v_c[cam_idx] + Bm v_p[pt_idx], Jᵀw = (Σ_{obs of c} Aᵀw,
     Σ_{obs of p} Bmᵀw) (``ops/obs_products.py``), Jc v and Jcᵀw from the
-    constraints' Jacobian on the camera block.  The blocks (A masked by
-    ``solver``'s frozen coordinates)
+    constraints' Jacobian on the camera block.  The blocks A (masked by
+    ``solver``'s frozen coordinates), Bm and W = AᵀBm (``ops/obs_blocks.py``)
     and Jc are worked out once per iterate and kept for the last ``KEEP``
     iterates (held, so compared by identity), so the Schur assembly and
     every product at one x share one forward pass."""
@@ -143,11 +129,8 @@ class _ListProducts:
                 return got
         sv = self._solver
         _, sl = sv._structure(data)
-        ci, pi = sl.cam_idx, sl.pt_idx
-        A, Bm = _list_obs_blocks(sv.project, x, sv.C, sv.P, sv.cd, ci, pi)
-        if sv._cam_mask is not None:
-            A = A * sv._cam_mask[ci][None, :, None, :]
-        got = dict(A=A, Bm=Bm, sl=sl)
+        A, Bm, W = obs_blocks.blocks(sv.project, x, sl, sv.cd, sv._cam_mask)
+        got = dict(A=A, Bm=Bm, W=W, sl=sl)
         self._kept = [(x, x._version, got)] + self._kept[: self.KEEP - 1]
         return got
 
@@ -381,11 +364,9 @@ class SchurBASolver(MatrixFreeSolver):
         grid U₀ (B, C, 6, 6), V₀ (B, P, 3, 3) and W (B, C, P, 6, 3); on a list
         U₀ (B, C, cd, cd), V₀ and W (B, n_obs, cd, 3)."""
         if self.listed:
-            _, sl = self._structure(data)
-            A, Bm = self.problem.blocks(x, data)
-            U, V = obs_products.uv(A, Bm, sl)
-            W = torch.einsum("boki,bokj->boij", A, Bm)
-            return U, V, W
+            got = self.problem._at(x, data)
+            U, V = obs_products.uv(got["A"], got["Bm"], got["sl"])
+            return U, V, got["W"]
         A, Bm = _masked(*_obs_blocks(self.project, x, self.C, self.P), data)
         if self._cam_mask is not None:
             A = A * self._cam_mask[:, None, None, :]

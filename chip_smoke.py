@@ -141,7 +141,21 @@ times the card:
    scene (``bal_scene`` at seed 0): every product call of every kind a
    launch (engagement 1).
 
-Phase 23 (the routes' peak device memory) runs after phase 27, before the
+Phase 28 (the list route's per-observation Jacobian blocks,
+``ops/obs_blocks.py``) runs after phase 27, before the pool, since it times
+the card:
+
+28. the kernel on BAL Dubrovnik-356's lists (``SCHUR_PAIRS_SCENE``, built
+   on the card) at the scene's true cameras and points (``draw_scene`` at
+   seed 0), a frozen-coordinate mask on camera 0, float32 and float64:
+   A, Bm and W within ``OBS_BLOCKS_BAR`` of each observation's block
+   magnitude from the plain version (``jacfwd`` and an einsum), bit-equal
+   across two launches, each launch counted; at float32 the kernel and the
+   plain version timed with CUDA events, beside the byte bound; then one
+   float32 LM solve of the scene (``bal_scene`` at seed 0): every block
+   evaluation a launch (engagement 1).
+
+Phase 23 (the routes' peak device memory) runs after phase 28, before the
 pool:
 
 23. ``large_rung_problem(m, 1024)`` (float32, Gauss–Newton, condensed,
@@ -2875,6 +2889,105 @@ def phase_obs_products(dev, scene=SCHUR_PAIRS_SCENE, cases=OBS_CASES):
     return out
 
 
+# the blocks kernel's types, the first the main path's and the one timed,
+# and the bars on |kernel - plain| over each observation's block magnitude
+# (the largest |entry| of its A, Bm or W from the plain version): the two
+# round the same derivatives in other orders (jacfwd's tangent by tangent
+# and cuBLAS's W, the kernel's closed form with each product rounded)
+OBS_BLOCKS_CASES = (torch.float32, torch.float64)
+OBS_BLOCKS_BAR = {torch.float32: 1e-5, torch.float64: 1e-12}
+# operations an observation, counted from csrc/obs_blocks.cu's source (the
+# full rotation branch, the mask and W included; sqrt, sin, cos and a
+# divide count one each)
+OBS_BLOCKS_FLOPS = 490
+
+
+def _blocks_err(got, want, dtype):
+    """The largest |kernel - plain| over each observation's block magnitude,
+    of A, Bm and W."""
+    tiny = torch.finfo(dtype).tiny
+    return max(float(((g - w).abs().flatten(2).amax(-1) / w.abs().flatten(2).amax(-1).clamp_min(tiny)).max())
+               for g, w in zip(got, want))
+
+
+def _blocks_bound(sl, dtype):
+    """The blocks kernel's least time (ms): two 32-bit indices an
+    observation, x's cameras and points read once, A, Bm and W written once
+    (2·9 + 2·3 + 9·3 items an observation)."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = 8 * sl.n_obs + item * (9 * sl.n_cams + 3 * sl.n_pts + 51 * sl.n_obs)
+    return _bound(nbytes, OBS_BLOCKS_FLOPS * sl.n_obs, dtype)
+
+
+def phase_obs_blocks(dev, scene=SCHUR_PAIRS_SCENE, cases=OBS_BLOCKS_CASES):
+    """Phase 28: the list route's per-observation Jacobian blocks
+    (``ops/obs_blocks.py``) on BAL Dubrovnik-356's lists, built on the card,
+    at the scene's true cameras and points, camera 0's pose frozen by the
+    mask.  The kernel against its plain version in each type: A, Bm and W
+    within ``OBS_BLOCKS_BAR`` of each observation's block magnitude;
+    bit-equal across two launches; one launch counted per launch.  At the
+    first type the kernel and the plain version are timed with CUDA events,
+    beside the byte bound.  Then one float32 LM solve of the scene: the
+    block evaluations and the launches over them."""
+    from cannoles_tpu_torch.core import segments
+    from cannoles_tpu_torch.core.ba import SchurBASolver
+    from cannoles_tpu_torch.models.bal import bal_scene, draw_scene, snavely_project
+    from cannoles_tpu_torch.ops import obs_blocks, obs_products
+
+    C, P, n_obs = scene
+    sc = draw_scene(C, P, n_obs, seed=0)
+    sl = obs_products.lists(sc["cam_idx"].to(dev), sc["pt_idx"].to(dev), C, P)
+    out = dict(shape=f"{C} cameras, {P:,} points, {n_obs:,} observations", cases=[])
+    l0 = _count("obs_blocks")
+    launched = 0
+    for k, dtype in enumerate(cases):
+        x = torch.cat([sc["cams"].reshape(-1), sc["pts"].reshape(-1)]).to(dtype=dtype, device=dev)[None]
+        mask = torch.ones((C, 9), dtype=dtype, device=dev)
+        mask[0, :6] = 0
+        k1 = obs_blocks.blocks(snavely_project, x, sl, 9, mask)
+        k2 = obs_blocks.blocks(snavely_project, x, sl, 9, mask)
+        launched += 2
+        ref = obs_blocks.plain_blocks(snavely_project, x, sl, 9, mask)
+        torch.cuda.synchronize()
+        case = dict(dtype=str(dtype)[6:], err_over_magnitude=_blocks_err(k1, ref, dtype),
+                    bit_equal=all(torch.equal(a, b) for a, b in zip(k1, k2)))
+        if not case["bit_equal"] or not case["err_over_magnitude"] <= OBS_BLOCKS_BAR[dtype]:
+            raise AssertionError(f"phase 28: the blocks kernel at {case}: not bit-equal across launches or over "
+                                 f"{OBS_BLOCKS_BAR[dtype]:g} of the blocks' magnitudes against the plain version")
+        if k == 0:
+            ms = _events_ms(lambda: obs_blocks.blocks(snavely_project, x, sl, 9, mask), reps=20)
+            launched += 23
+            bound, by = _blocks_bound(sl, dtype)
+            out.update(ms=ms, bound_ms=bound, bound_by=by, share=bound / ms, timed=case["dtype"],
+                       plain_ms=_events_ms(lambda: obs_blocks.plain_blocks(snavely_project, x, sl, 9, mask), reps=3))
+            _log(f"  {case['dtype']}: kernel {ms:.4f} ms, plain {out['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+                 f"({by}, {100 * bound / ms:.2f}%)")
+        out["cases"].append(case)
+        del k1, k2, ref
+    out["launches"] = _count("obs_blocks") - l0
+    if out["launches"] != launched:
+        raise AssertionError(f"phase 28: {out['launches']} blocks-kernel launches counted for {launched} made")
+    _log(f"  blocks kernel on {out['shape']}: {out['cases']}")
+
+    pb, _ = bal_scene(C, P, n_obs, seed=0, dtype=torch.float32, device=dev)
+    s = SchurBASolver(pb, C, P, method="lm", use_initial_multiplier=True)
+    s.solve(max_iter=50)  # warm: the lists, the pair plan, the kernels' first launches
+    c0 = segments.counters()
+    t0 = time.perf_counter()
+    st = s.solve(max_iter=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c1 = segments.counters()
+    calls = c1[("obs_blocks", "calls")] - c0[("obs_blocks", "calls")]
+    launches = c1["obs_blocks"] - c0["obs_blocks"]
+    out["solve"] = dict(status=st.status, iter=st.iter, nfact=st.solver_specific["nfact"], wall_ms=1e3 * wall,
+                        calls=calls, launches=launches, engagement=launches / max(calls, 1))
+    _log(f"  one solve of the scene: {out['solve']}")
+    if calls <= 0 or out["solve"]["engagement"] != 1.0:
+        raise AssertionError(f"phase 28: a solve's blocks did not all come from the kernel: {out['solve']}")
+    return out
+
+
 MEMORY_ROWS = (8192, 65536, 262144)
 MEMORY_RATIO_BAR = 1.25
 
@@ -3139,6 +3252,11 @@ def main() -> int:
     products = phase_obs_products(dev)
     torch.cuda.empty_cache()
 
+    _phase("phase 28: the list route's per-observation Jacobian blocks on BAL Dubrovnik-356's lists (kernel vs "
+           "plain version, times, one solve's engagement)")
+    blocks28 = phase_obs_blocks(dev)
+    torch.cuda.empty_cache()
+
     _phase("phase 23: peak device memory of the graph and eager routes, large_rung_problem(m, 1024) at m = "
            + ", ".join(f"{m:,}" for m in MEMORY_ROWS))
     memory = phase_memory(dev)
@@ -3277,6 +3395,12 @@ def main() -> int:
         "source": "cannoles_tpu_torch/csrc/obs_products.cu",
         "replaces": None,  # no TPU kernel: the JAX package has no observation-list route
         **products,
+    }, {
+        "name": "obs_blocks",
+        "route": "cuda",
+        "source": "cannoles_tpu_torch/csrc/obs_blocks.cu",
+        "replaces": None,  # no TPU kernel: the JAX package has no observation-list route
+        **blocks28,
     }], "battery": {"parity_f64": parity11, "f32_card": battery12}, "large_ba": large,
         "separable_fit": fit, "fit_parity": fit_parity, "examples": examples_out,
         "sharded": {k: v for k, v in sharded.items() if k != "launches_cfg4_per_rank"},

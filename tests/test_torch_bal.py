@@ -1,6 +1,6 @@
 """PyTorch port, BAL bundle adjustment on an observation list
 (``models/bal.py``, the list route of ``core/ba.py``, ``ops/schur_pairs.py``,
-``ops/obs_products.py``) against the plain float64 reference
+``ops/obs_products.py``, ``ops/obs_blocks.py``) against the plain float64 reference
 ``tests/bal_plain.py`` on the CPU.
 
 Scenes of 5 cameras, 80 points and 350 observations in float64; the list
@@ -21,7 +21,7 @@ import bal_plain as bp  # noqa: E402
 
 from cannoles_tpu_torch import nls_problem  # noqa: E402
 from cannoles_tpu_torch.core import segments  # noqa: E402
-from cannoles_tpu_torch.core.ba import SchurBASolver, _list_obs_blocks  # noqa: E402
+from cannoles_tpu_torch.core.ba import SchurBASolver  # noqa: E402
 from cannoles_tpu_torch.core.solver import _add_batch_axis  # noqa: E402
 from cannoles_tpu_torch.models.ba_large import large_bundle_adjustment, project_point  # noqa: E402
 from cannoles_tpu_torch.models.bal import (  # noqa: E402
@@ -32,7 +32,7 @@ from cannoles_tpu_torch.models.bal import (  # noqa: E402
     snavely_project,
     write_bal,
 )
-from cannoles_tpu_torch.ops import _native, obs_products, schur_pairs  # noqa: E402
+from cannoles_tpu_torch.ops import _native, obs_blocks, obs_products, schur_pairs  # noqa: E402
 
 C, P, N_OBS = 5, 80, 350
 F64 = torch.float64
@@ -69,7 +69,7 @@ def test_snavely_projection_and_blocks_against_plain():
     np.testing.assert_allclose(snavely_project(cams[:, None], pts[None]).numpy(),
                                bp.project(cams[:, None].expand(C, P, 9), pts[None].expand(C, P, 3)).numpy(),
                                rtol=1e-14, atol=1e-10)
-    A, Bm = _list_obs_blocks(snavely_project, x[None], C, P, 9, sc["cam_idx"], sc["pt_idx"])
+    A, Bm = obs_blocks.jacfwd_blocks(snavely_project, x[None], C, P, 9, sc["cam_idx"], sc["pt_idx"])
     Ar, Br = bp.blocks(x, sc)
     np.testing.assert_allclose(A[0].numpy(), Ar.numpy(), rtol=1e-12, atol=1e-9)
     np.testing.assert_allclose(Bm[0].numpy(), Br.numpy(), rtol=1e-12, atol=1e-9)
@@ -329,3 +329,118 @@ def test_obs_products_take_the_plain_version_on_the_cpu():
     assert c1["obs_products"] == c0["obs_products"]
     assert "obs_products.cu" not in _native._LIBS and "obs_products.cu" not in _native._SOURCES
     assert (_native.CSRC / "obs_products.cu").exists()
+
+
+def _blocks_before_the_kernel(project, x, C_, P_, cd, ci, pi, mask):
+    """The list route's blocks as ``core/ba.py`` formed them before
+    ``ops/obs_blocks.py``: vmap(vmap(jacfwd)) over the gathered cameras and
+    points, the mask, W by an einsum."""
+    from torch.func import jacfwd, vmap
+
+    Bt = x.shape[0]
+    cams = x[:, : cd * C_].reshape(Bt, C_, cd)[:, ci]
+    pts = x[:, cd * C_:].reshape(Bt, P_, 3)[:, pi]
+
+    def jac_one(cam, pt):
+        J = jacfwd(lambda v: project(v[:cd], v[cd:]))(torch.cat([cam, pt]))
+        return J[:, :cd], J[:, cd:]
+
+    A, Bm = vmap(vmap(jac_one))(cams, pts)
+    A, Bm = A.to(x.dtype), Bm.to(x.dtype)
+    if mask is not None:
+        A = A * mask[ci][None, :, None, :]
+    return A, Bm, torch.einsum("boki,bokj->boij", A, Bm)
+
+
+@pytest.mark.parametrize("case", ["f64", "f64_masked", "f32_two_lanes", "pinhole_masked"])
+def test_plain_blocks_equal_the_blocks_before_the_kernel(case):
+    """``obs_blocks.plain_blocks`` (and ``blocks`` on CPU tensors) give the
+    blocks the list route formed before the kernel, bit for bit: Snavely's
+    camera in float64, with a frozen-coordinate mask, in float32 on two
+    lanes, and the 6-parameter pinhole with a mask."""
+    g = torch.Generator().manual_seed(31)
+    sc = draw_scene(C, P, N_OBS, seed=8)
+    ci, pi = sc["cam_idx"], sc["pt_idx"]
+    dt = torch.float32 if case == "f32_two_lanes" else F64
+    if case == "pinhole_masked":
+        project, cd = project_point, 6
+        cams = torch.cat([0.1 * torch.randn((C, 3), generator=g, dtype=F64),
+                          torch.tensor([0.0, 0.0, -8.0], dtype=F64).expand(C, 3)], -1)
+    else:
+        project, cd, cams = snavely_project, 9, sc["cams"]
+    x = torch.cat([cams.reshape(-1), sc["pts"].reshape(-1)]).to(dt)[None]
+    if case == "f32_two_lanes":
+        x = torch.cat([x, x + 1e-3 * torch.randn(x.shape, generator=g).to(dt)])
+    mask = None
+    if case.endswith("masked"):
+        mask = torch.ones(C, cd, dtype=dt)
+        mask[0, :6] = 0.0
+        mask[2, 4] = 0.0
+    sl = obs_products.lists(ci, pi, C, P)
+    want = _blocks_before_the_kernel(project, x, C, P, cd, ci, pi, mask)
+    for got in (obs_blocks.plain_blocks(project, x, sl, cd, mask), obs_blocks.blocks(project, x, sl, cd, mask)):
+        assert len(got) == 3
+        for a, b in zip(got, want):
+            assert a.dtype == dt and torch.equal(a, b)
+    if mask is not None:
+        assert bool((want[0][:, ci == 0][..., :6] == 0).all())
+
+
+def test_obs_blocks_count_calls_and_no_launch_on_the_cpu():
+    """A list-route solve on the CPU counts each block evaluation as a call
+    and launches nothing; the kernel's library is not built; the Schur
+    assembly's W is the one kept beside A and Bm."""
+    pb, _, _ = _scene()
+    s = SchurBASolver(pb, C, P, method="lm")
+    d = _batched(pb)
+    c0 = segments.counters()
+    st = s.solve(max_iter=3)
+    c1 = segments.counters()
+    assert c1[("obs_blocks", "calls")] - c0[("obs_blocks", "calls")] >= st.iter
+    assert c1["obs_blocks"] == c0["obs_blocks"]
+    assert "obs_blocks.cu" not in _native._LIBS and "obs_blocks.cu" not in _native._SOURCES
+    assert (_native.CSRC / "obs_blocks.cu").exists()
+    x = pb.x0[None].clone()
+    got = s.problem._at(x, d)
+    U, V, W = s._blocks(x, d)
+    assert W is got["W"] and s.problem._at(x, d) is got
+    assert torch.equal(W, torch.einsum("boki,bokj->boij", got["A"], got["Bm"]))
+
+
+def test_own_projection_never_routes_to_the_kernel(monkeypatch):
+    """The kernel's route is chosen by the projection: off the CPU (here a
+    meta tensor stands for a card's), a user's own projection, even one that
+    computes Snavely's, and the 6-parameter pinhole take the plain version,
+    and ``snavely_project`` alone reaches the launch; a solver built with its
+    own projection solves as the default one on the CPU."""
+    pb, _, _ = _scene()
+    d = _batched(pb)
+
+    def own(cam, pt):
+        return snavely_project(cam, pt)
+
+    class Launch(Exception):
+        pass
+
+    def launch(dtype):
+        raise Launch(dtype)
+
+    took = []
+    monkeypatch.setattr(obs_blocks, "plain_blocks", lambda project, *a: took.append(project))
+    monkeypatch.setattr(obs_blocks, "_function", launch)
+    s = SchurBASolver(pb, C, P, method="lm", project=own)
+    _, sl = s._structure(d)
+    meta = sl._replace(cam=sl.cam.to("meta"), pt=sl.pt.to("meta"))
+    x = pb.x0[None].to("meta")
+    obs_blocks.blocks(own, x, meta, 9)
+    obs_blocks.blocks(project_point, x, meta, 6)
+    assert took == [own, project_point]
+    with pytest.raises(Launch):
+        obs_blocks.blocks(snavely_project, x, meta, 9)
+    assert took == [own, project_point]
+    monkeypatch.undo()
+    c0 = segments.counters()
+    st = SchurBASolver(pb, C, P, method="lm", project=own).solve(max_iter=2)
+    assert segments.counters()[("obs_blocks", "calls")] > c0[("obs_blocks", "calls")]
+    ref = SchurBASolver(pb, C, P, method="lm").solve(max_iter=2)
+    np.testing.assert_array_equal(st.solution, ref.solution)

@@ -161,12 +161,13 @@ def test_the_eager_route_copies_nothing():
     {("fused_ldlt", (5, 16384)): 4},
     {"bank_copy": 2, ("bank_copy", "entries"): 75, ("bank_copy", "left"): 3},
     {"obs_products": 5, ("obs_products", "jtw"): 5},
+    {"obs_blocks": 3, ("obs_blocks", "calls"): 3},
     {"schur_pairs": 2},
     {("host_syncs", "check:test.segment"): 2, "host_syncs": 2},
     {("all_false", "check:test.segment"): 1},
     {("rescue_lanes", "test.stage"): 7},
     {("schur", "assemble"): 2, ("schur", "pairs"): 90},
-], ids=["launches", "by_shape", "bank_copy", "obs_products", "schur_pairs", "host_syncs", "all_false",
+], ids=["launches", "by_shape", "bank_copy", "obs_products", "obs_blocks", "schur_pairs", "host_syncs", "all_false",
         "rescue_lanes", "schur"])
 def test_the_counters_add_up_and_restore(delta):
     """A replayed graph's counts (``_capture``'s delta, the derived

@@ -1156,3 +1156,104 @@ def test_list_route_solve_on_card_takes_the_obs_products_kernel(cuda, monkeypatc
     assert segments.counters()["obs_products"] == c1["obs_products"]
     assert st.status == st_plain.status == "first_order"
     assert abs(f - f_plain) <= 1e-3 * f_plain
+
+
+# A, Bm and W from the blocks kernel within this share of each
+# observation's block magnitude (the largest |entry| of its A, Bm or W)
+# from the plain version: both form the same derivatives and round them in
+# other orders (jacfwd tangent by tangent and W by cuBLAS, the kernel in
+# closed form with each product rounded), a few units of the last place
+# of the block's largest terms; float32 takes ``_OBS_BAR``'s bar
+_BLOCKS_BAR = {torch.float32: _OBS_BAR[torch.float32], torch.float64: 1e-12}
+
+
+def _blocks_case(case, dt, dev):
+    """(x (lanes, 9C + 3P), lists, mask) of Dubrovnik-356's scene at its
+    true cameras and points for ``case``: as drawn, small angles (w = 0 on
+    every third camera, |w| ≈ 1e-7 on the next), camera 0's pose and one
+    focal length frozen by the mask, or two lanes (the second moved)."""
+    from cannoles_tpu_torch.models.bal import draw_scene
+    from cannoles_tpu_torch.ops import obs_products
+
+    C, P, n_obs = 356, 226_730, 1_255_268
+    sc = draw_scene(C, P, n_obs, seed=0)
+    cams = sc["cams"].clone()
+    if case == "small_angle":
+        cams[0::3, :3] = 0.0
+        cams[1::3, :3] = torch.tensor([6e-8, -5e-8, 4e-8], dtype=cams.dtype)
+    x = torch.cat([cams.reshape(-1), sc["pts"].reshape(-1)]).to(dtype=dt, device=dev)[None]
+    if case == "two_lanes":
+        g = torch.Generator(device=dev).manual_seed(22)
+        x = torch.cat([x, x + 1e-3 * torch.randn(x.shape, generator=g, dtype=dt, device=dev)])
+    mask = None
+    if case == "masked":
+        mask = torch.ones((C, 9), dtype=dt, device=dev)
+        mask[0, :6] = 0.0
+        mask[7, 6] = 0.0
+    return x, obs_products.lists(sc["cam_idx"].to(dev), sc["pt_idx"].to(dev), C, P), mask
+
+
+@pytest.mark.parametrize("case", ["scene", "small_angle", "masked", "two_lanes"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_obs_blocks_kernel_matches_plain_at_dubrovnik_size_on_card(cuda, dtype, case):
+    """The blocks kernel at BAL Dubrovnik-356's lists (356 cameras, 226,730
+    points, 1,255,268 observations): A, Bm and W against the plain version
+    (jacfwd, the mask, an einsum) within ``_BLOCKS_BAR`` of each
+    observation's block magnitude, bit-equal across two launches, each
+    launch counted, the masked columns zero."""
+    from cannoles_tpu_torch.models.bal import snavely_project
+    from cannoles_tpu_torch.ops import obs_blocks
+
+    dt = getattr(torch, dtype)
+    x, sl, mask = _blocks_case(case, dt, cuda)
+    before = _n("obs_blocks")
+    k1 = obs_blocks.blocks(snavely_project, x, sl, 9, mask)
+    k2 = obs_blocks.blocks(snavely_project, x, sl, 9, mask)
+    ref = obs_blocks.plain_blocks(snavely_project, x, sl, 9, mask)
+    torch.cuda.synchronize()
+    assert _n("obs_blocks") == before + 2
+    for a, b, r, shape in zip(k1, k2, ref, ((2, 9), (2, 3), (9, 3))):
+        assert a.shape == r.shape == (x.shape[0], sl.n_obs, *shape) and a.is_contiguous()
+        assert torch.equal(a, b)
+        mag = r.abs().flatten(2).amax(-1).clamp_min(torch.finfo(dt).tiny)
+        worst = float(((a - r).abs().flatten(2).amax(-1) / mag).max())
+        assert worst <= _BLOCKS_BAR[dt], (shape, worst)
+    if mask is not None:
+        on0 = sl.cam_idx == 0
+        assert bool((k1[0][:, on0][..., :6] == 0).all()) and bool((k1[2][:, on0][:, :, :6] == 0).all())
+    with pytest.raises(ValueError, match="must be"):
+        obs_blocks.blocks(snavely_project, x[:, :-3], sl, 9, mask)
+
+
+def test_list_route_solve_on_card_takes_the_obs_blocks_kernel(cuda, monkeypatch):
+    """One LM solve of a tenth of Dubrovnik-356 (36 cameras, 22,673 points,
+    125,527 observations, float32) on the card: every block evaluation a
+    launch of the blocks kernel ("obs_blocks" = ("obs_blocks", "calls") >
+    0); with the plain blocks on the card the same status and the cost
+    within 1e-3 of it (the cell's cost_gap limit: both stop at the stated
+    √eps-relative first-order test, in other roundings)."""
+    from cannoles_tpu_torch.core.ba import SchurBASolver
+    from cannoles_tpu_torch.core.solver import _add_batch_axis
+    from cannoles_tpu_torch.models.bal import bal_scene
+    from cannoles_tpu_torch.ops import obs_blocks
+
+    C, P = 36, 22_673
+    pb, _ = bal_scene(C, P, 125_527, seed=0, dtype=torch.float32, device=cuda)
+    data = _add_batch_axis(pb.data, cuda)
+
+    def solve():
+        s = SchurBASolver(pb, C, P, method="lm", use_initial_multiplier=True)
+        st = s.solve(max_iter=50)
+        return st, 0.5 * float((pb.F(s.last_state.x, data).double() ** 2).sum())
+
+    c0 = segments.counters()
+    st, f = solve()
+    c1 = segments.counters()
+    calls = c1[("obs_blocks", "calls")] - c0[("obs_blocks", "calls")]
+    assert calls > 0 and c1["obs_blocks"] - c0["obs_blocks"] == calls
+    plain = obs_blocks.plain_blocks
+    monkeypatch.setattr(obs_blocks, "blocks", lambda project, x, sl, cd, mask=None: plain(project, x, sl, cd, mask))
+    st_plain, f_plain = solve()
+    assert segments.counters()["obs_blocks"] == c1["obs_blocks"]
+    assert st.status == st_plain.status == "first_order"
+    assert abs(f - f_plain) <= 1e-3 * f_plain
